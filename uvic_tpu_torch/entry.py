@@ -1,0 +1,57 @@
+"""Entry points of the PyTorch port (counterparts of
+``__graft_entry__._flagship`` and ``_wind``).
+
+``_flagship(small=False)`` builds the flagship ocean: the standard
+3.6 x 1.8 deg, 19-level grid with the reference's configured physics
+(isopycnal/GM mixing, FCT, full convection, tidal kv, geothermal heat,
+Large-2001 anisotropic viscosity, GD13 equatorial zonal mixing), two
+tracers, in float32, and primes the leapfrog levels with one forward
+step.  ``small=True`` gives the light 34x40x8 configuration of the JAX
+entry (isopycnal/GM mixing off).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import ModelConfig, small_config
+from .models.ocean.model import make_forcing, make_ocean
+
+
+def _flagship(small=False, device=None, dtype="float32"):
+    """(model, primed state, forcing) of the flagship configuration."""
+    if small:
+        cfg = small_config(imt=40, jmt=34, km=8)
+        cfg = cfg.replace(dtype=dtype, ocean=dataclasses.replace(
+            cfg.ocean, isopycmix=False, gent_mcwilliams=False))
+    else:
+        cfg = ModelConfig(dtype=dtype)
+        cfg = cfg.replace(ocean=dataclasses.replace(
+            cfg.ocean, isopycmix=True, gent_mcwilliams=True,
+            tidal_kv=True, gthflx=True, aniso_visc=True,
+            aniso_zonal=True))
+    m = make_ocean(cfg, device=device)
+    g = m.params.grid
+    t0 = np.zeros((2, g.km, g.jmt, g.imt))
+    t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None]
+    t0 *= np.asarray(m.params.topo.tmask)
+    forcing = _wind(m)
+    state = m.step(m.init_state(t0), forcing, leapfrog=False)
+    return m, state, forcing
+
+
+def _wind(m):
+    """Idealized zonal wind stress sin(3 lat), no tracer fluxes."""
+    g = m.params.grid
+    yu = np.asarray(g.yu)
+    taux = np.sin(np.deg2rad(yu * 3))[:, None] * np.ones((1, g.imt))
+    smf = np.stack([taux / 1.035, np.zeros_like(taux)])
+    stf = np.zeros((m.nt, g.jmt, g.imt))
+
+    def tn(x):
+        return torch.as_tensor(x, dtype=m.dtype, device=m.device)
+
+    return make_forcing(tn(smf), tn(stf))

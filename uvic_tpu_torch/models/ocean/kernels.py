@@ -1,0 +1,201 @@
+"""Ocean dynamical-core stencils: advection velocities and the
+baroclinic momentum update (torch).
+
+Port of ``uvic_tpu.models.ocean.kernels`` (source/mom/adv_vel.F,
+clinic.F with the finite-difference numerics of fdifm.h).  Array layout
+is ``(..., km, jmt, imt)``.  The tracer update lives in
+``ops/tracer_kernel.py`` (the fused kernel and its plain version).
+
+All velocities passed in are *full* velocities (internal + external
+mode); the caller reconstructs them from the streamfunction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...ops.stencil import DN, E, N, S, UP, W, setbcx
+
+
+def adv_vel(u, v, g, cyclic=True):
+    """Face advection velocities from the full B-grid velocity
+    (adv_vel.F:1-253).
+
+    u, v : (km, jmt, imt) full velocities at tau
+    g    : parameter bag with grid factor tensors (see model.py)
+    returns (vet, vnt, vbt, veu, vnu, vbu); vbt/vbu are at cell bottoms
+    with the rigid-lid surface face = 0.
+    """
+    dxu = g.dxu[None, None, :]
+    dyu = g.dyu[None, :, None]
+    csu_j = g.csu[None, :, None]
+
+    # north face of T cells: adv_vnt = x-average of (v dxu) * csu / dxt
+    vnt = (v * dxu + W(v) * W(dxu)) * csu_j * g.dxt2r[None, None, :]
+    vnt = setbcx(vnt, cyclic)
+
+    # east face of T cells: y-average of (u dyu) / dyt
+    vet = (u * dyu + S(u) * S(dyu)) * g.dyt2r[None, :, None]
+
+    # bottom face of T cells: integrate the divergence downward
+    div = ((vet - W(vet)) * g.dxtr[None, None, :]
+           + (vnt - S(vnt)) * g.dytr[None, :, None]) \
+        * g.cstr[None, :, None] * g.dzt[:, None, None]
+    vbt = setbcx(torch.cumsum(div, dim=0), cyclic)
+
+    # north face of U cells: x/y interpolation of vnt (adv_vel.F:166-185)
+    duw = g.duw[None, None, :]
+    due = g.due[None, None, :]
+    dus_jp1 = N(g.dus[None, :, None])
+    dun_j = g.dun[None, :, None]
+    vnu = ((vnt * duw + E(vnt) * due) * dus_jp1
+           + (N(vnt) * duw + N(E(vnt)) * due) * dun_j) \
+        * N(g.dytr[None, :, None]) * g.dxur[None, None, :]
+    vnu = setbcx(vnu, cyclic)
+
+    # east face of U cells (adv_vel.F:194-219)
+    dus_j = g.dus[None, :, None]
+    vue = ((vet * dus_j + N(vet) * dun_j) * E(duw)
+           + (E(vet) * dus_j + N(E(vet)) * dun_j) * due) \
+        * g.dyur[None, :, None] * E(g.dxtr[None, None, :])
+    if cyclic:
+        veu = setbcx(vue, cyclic)
+    else:
+        veu = vue.clone()
+        veu[..., -1] = 0.0
+
+    # bottom face of U cells: area-weighted average of vbt (adv_vel.F:226-249)
+    dyn = dun_j * N(g.cst[None, :, None])
+    dys = dus_j * g.cst[None, :, None]
+    dyr = g.dyur[None, :, None] * g.csur[None, :, None]
+    vbu = dyr * g.dxur[None, None, :] * (
+        vbt * (duw * dys) + E(vbt) * (due * dys)
+        + N(vbt) * (duw * dyn) + N(E(vbt)) * (due * dyn))
+    vbu = setbcx(vbu, cyclic)
+
+    return vet, vnt, vbt, veu, vnu, vbu
+
+
+def hydrostatic_grad_p(rho, g, cyclic=True):
+    """Hydrostatic pressure gradients at U points (clinic.F:84-169).
+
+    rho : (km, jmt, imt) density anomaly at tau
+    returns grad_p (2, km, jmt, imt).
+    """
+    grav_rho0r = g.grav_rho0r
+    csur = g.csur[None, :, None]
+    dzw = g.dzw  # (km+1,)
+
+    # level-1 gradient from the surface density
+    t1 = N(E(rho)) - rho
+    t2 = N(rho) - E(rho)
+    gp1_sfc = (t1[0] - t2[0]) * (grav_rho0r * dzw[0]) * csur[0] \
+        * g.dxu2r[None, :]
+    gp2_sfc = (t1[0] + t2[0]) * (grav_rho0r * dzw[0]) * g.dyu2r[:, None]
+
+    # incremental gradients between levels
+    tempik = UP(rho) + rho                      # rho(k-1)+rho(k), k>=1
+    t1k = N(E(tempik)) - tempik
+    t2k = N(tempik) - E(tempik)
+    dzw_above = dzw[:-1].reshape(-1, 1, 1)      # dzw(k-1) for level k
+    gp1 = (grav_rho0r * 0.5) * csur * (t1k - t2k) * dzw_above \
+        * g.dxu2r[None, None, :]
+    gp2 = grav_rho0r * g.dyu4r[None, :, None] * (t1k + t2k) * dzw_above
+    gp1[0] = gp1_sfc
+    gp2[0] = gp2_sfc
+
+    grad_p = torch.stack([torch.cumsum(gp1, dim=0),
+                          torch.cumsum(gp2, dim=0)])
+    return setbcx(grad_p, cyclic)
+
+
+def clinic_step(u_tau, u_tm1, rho, veu, vnu, vbu, smf, bmf,
+                visc_cbu, kmu, umask, g, c2dtuv, cyclic=True,
+                aniso=None):
+    """Baroclinic momentum step (clinic.F:1-500), constant-am lateral
+    friction or, with ``aniso = (visc_ceu, visc_cnu)``, the Large et al.
+    (2001) anisotropic viscosity (the ``("aniso", ...)`` hmix branch of
+    ``uvic_tpu``).
+
+    u_tau/u_tm1 : (2, km, jmt, imt) full velocities
+    rho         : (km, jmt, imt) density anomaly at tau
+    smf/bmf     : (2, jmt, imt) surface/bottom momentum fluxes
+    returns (u_int_new, zu): internal-mode velocity at tau+1 with the
+    vertical mean removed, and the barotropic forcing zu (2, jmt, imt).
+    """
+    km = u_tau.shape[1]
+    grad_p = hydrostatic_grad_p(rho, g, cyclic)
+
+    csudxu2r = g.csudxu2r[None]
+    csudxur = g.csudxur[None]
+    csudyu2r = g.csudyu2r[None, :, None]
+    dzt2r = g.dzt2r[:, None, None]
+    dztr = g.dztr[:, None, None]
+    am_csudxtr = (g.am * g.csur[:, None] * E(g.dxtr)[None, :])[None]
+    amc_n = g.amc_north[None, :, None]
+    amc_s = g.amc_south[None, :, None]
+    am3 = g.am3[None, :, None]
+    dxmetr = g.dxmetr[None, None, :]
+    dzwr = g.dzwr[1:].reshape(km, 1, 1)
+    levels = torch.arange(km, device=u_tau.device).reshape(km, 1, 1)
+    is_bot = levels == (kmu - 1)[None]
+
+    u_new = []
+    zu = []
+    for n in range(2):
+        un_tau = u_tau[n]
+        un_tm1 = u_tm1[n]
+        other_tau = u_tau[1 - n]
+        other_tm1 = u_tm1[1 - n]
+
+        # advective fluxes (2x) across faces of U cells; DN zero-fill
+        # at the bottom reproduces adv_fb(i,km,j) = adv_vbu*u (clinic.F:279)
+        adv_fe = veu * (un_tau + E(un_tau))
+        adv_fb = vbu * (un_tau + DN(un_tau))
+        adv_ux = (adv_fe - W(adv_fe)) * csudxu2r
+        adv_uy = (vnu * (un_tau + N(un_tau))
+                  - S(vnu) * (S(un_tau) + un_tau)) * csudyu2r
+        adv_uz = (UP(adv_fb) - adv_fb) * dzt2r
+        adv_metric = g.advmet[n][None, :, None] * u_tau[0] * other_tau
+
+        # lateral friction
+        if aniso is not None:
+            # updates/08 clinic.F:75-82, 223-236: 3-D visc_ceu on zonal
+            # faces, visc_cnu in the meridional flux coefficients; the
+            # metric terms keep the constant-am form
+            visc_ceu, visc_cnu = aniso
+            diff_fe = visc_ceu * (am_csudxtr / g.am) * (E(un_tm1) - un_tm1)
+            diff_uy = (visc_cnu * (amc_n / g.am) * (N(un_tm1) - un_tm1)
+                       - visc_cnu * (amc_s / g.am) * (un_tm1 - S(un_tm1)))
+        else:
+            diff_fe = am_csudxtr * (E(un_tm1) - un_tm1)
+            diff_uy = (amc_n * (N(un_tm1) - un_tm1)
+                       - amc_s * (un_tm1 - S(un_tm1)))
+        diff_ux = (diff_fe - W(diff_fe)) * csudxur
+        diff_fb = visc_cbu * dzwr * (un_tm1 - DN(un_tm1))
+        diff_fb[-1] = 0.0
+        diff_fb = torch.where(is_bot, bmf[n][None], diff_fb)
+        fb_above = UP(diff_fb)
+        fb_above[0] = smf[n]
+        diff_uz = (fb_above - diff_fb) * dztr
+        diff_metric = (am3 * un_tm1
+                       + g.am4[n][None, :, None] * dxmetr
+                       * (E(other_tm1) - W(other_tm1)))
+
+        coriolis = g.cori[n][None] * other_tau
+
+        tend = (diff_ux + diff_uy + diff_uz + diff_metric
+                - adv_ux - adv_uy - adv_uz + adv_metric
+                - grad_p[n] + coriolis) * umask
+
+        # barotropic forcing: depth average of du/dt (clinic.F:364-404)
+        zu.append(torch.einsum("kji,k->ji", tend, g.dzt) * g.hr)
+        u_new.append(un_tm1 + c2dtuv * tend)
+
+    u_new = torch.stack(u_new)
+    zu = torch.stack(zu)
+
+    # remove the (incorrect) vertical mean to leave pure internal modes
+    baru = torch.einsum("nkji,k->nji", u_new, g.dzt) * g.hr[None]
+    u_int = (u_new - umask[None] * baru[:, None]) * umask[None]
+    return setbcx(u_int, cyclic), setbcx(zu, cyclic)

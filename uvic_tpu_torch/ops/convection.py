@@ -1,0 +1,118 @@
+"""Complete convective adjustment (O_fullconvect), torch.
+
+Port of ``convct_full`` of ``uvic_tpu.ops.convection`` (convct2,
+convect.F:99-311, Rahmstorf 1993): every level starts as its own region,
+adjacent regions merge wherever their thickness-weighted means are
+statically unstable at the interface, and the merging iterates to a
+fixed point.  Mixing is linear averaging with fixed weights, so the
+result is a per-cell matrix M[k, l] (the normalised region membership)
+applied to every tracer.
+
+``apply_region_means`` is the CUDA kernel that applies M
+(``csrc/convect_apply.cu``, replacing the Pallas kernel
+``_apply_region_means_pallas``); ``apply_region_means_ref`` is its plain
+PyTorch version.  Stability comparisons use the EOS coefficients of the
+upper level of the lower region (convect.F:201-204,232-235).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..cuda import check_cuda, launch, ptr
+from .eos import dens
+
+
+def _region_means(ts, label, w):
+    """Thickness-weighted mean of each level's region, from the original
+    profile. label[k] = index of the region's top level (non-decreasing)."""
+    same = (label[:, None] == label[None, :]).to(ts.dtype)  # (k,l,j,i)
+    wfull = torch.broadcast_to(w, ts.shape[1:])
+    sum_tw = torch.einsum("kl...,nl...->nk...", same, ts * w)
+    sum_w = torch.einsum("kl...,l...->k...", same, wfull)
+    return sum_tw / sum_w
+
+
+def _stable_labels(ts, kmt, eos_c, eos_to, eos_so, dztxcl):
+    """Fixed-point region labels of the complete-removal scheme:
+    label[k] = top level index of the statically-stable mixed region
+    containing level k.
+
+    A column needs at most km-1 merges, and once the labels stop changing
+    a pass is the identity, so exactly km passes reach the fixed point
+    that ``uvic_tpu``'s data-dependent ``while_loop`` (max km trips)
+    stops at, with no host-side convergence check."""
+    km = ts.shape[1]
+    w = dztxcl.reshape(km, 1, 1)
+    idx = torch.arange(km, device=ts.device).reshape(km, 1, 1)
+    ocean = idx < kmt[None]
+    to = eos_to[:, None, None]
+    so = eos_so[:, None, None]
+    cc = eos_c[:, None, None, :]
+    label = torch.broadcast_to(idx, ts.shape[1:]).clone()
+    for _ in range(km):
+        means = _region_means(ts[:2], label, w)    # (2, km, j, i)
+        # interface above level s (s = region start > 0): upper region
+        # mean is at s-1, lower at s; reference coefficients of level s
+        mt_up = torch.cat([means[0, :1], means[0, :-1]], dim=0)
+        ms_up = torch.cat([means[1, :1], means[1, :-1]], dim=0)
+        rho_up = dens(cc, mt_up - to, ms_up - so)
+        rho_dn = dens(cc, means[0] - to, means[1] - so)
+        unstable = (rho_up > rho_dn) & ocean & (idx > 0)
+        new_start = (label == idx) & ~unstable
+        new_start[0] = True
+        label = torch.cummax(torch.where(new_start, idx, -1), dim=0).values
+    return label
+
+
+def apply_region_means_ref(ts, mnorm, ocean):
+    """Plain version of the kernel: out[n, k] = sum_l M[k, l] ts[n, l]
+    on ocean cells, in the kernel's summation order."""
+    out = mnorm[:, 0][None] * ts[:, 0][:, None]
+    for l in range(1, ts.shape[1]):
+        out = out + mnorm[:, l][None] * ts[:, l][:, None]
+    return torch.where(ocean[None] > 0, out, ts)
+
+
+def apply_region_means(ts, mnorm, ocean):
+    """Apply the region-mixing matrix to all tracers.
+
+    ts (nt, km, jmt, imt), mnorm (km, km, jmt, imt), ocean (km, jmt, imt).
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    if ts.device.type == "cpu":
+        return apply_region_means_ref(ts, mnorm, ocean)
+    nt, km, jmt, imt = ts.shape
+    check_cuda("apply_region_means", dict(
+        ts=(ts, None), mnorm=(mnorm, (km, km, jmt, imt)),
+        ocean=(ocean, (km, jmt, imt))))
+    out = torch.empty_like(ts)
+    launch("uvic_region_means_apply", ptr(ts), ptr(mnorm), ptr(ocean),
+           ptr(out), nt, km, jmt * imt)
+    apply_region_means.launches += 1
+    return out
+
+
+apply_region_means.launches = 0
+
+
+def region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so, dztxcl):
+    """M[k, l, j, i]: weight of level l in the mixed value of level k."""
+    km = ts.shape[1]
+    label = _stable_labels(ts, kmt, eos_c, eos_to, eos_so, dztxcl)
+    same = (label[:, None] == label[None, :]).to(ts.dtype)
+    wfull = torch.broadcast_to(dztxcl.reshape(km, 1, 1), ts.shape[1:])
+    sum_w = torch.einsum("kl...,l...->k...", same, wfull)
+    return same * wfull[None] / sum_w[:, None]
+
+
+def convct_full(ts, kmt, eos_c, eos_to, eos_so, dztxcl):
+    """Complete convective adjustment (convct2 fixed point): every
+    column's final profile is statically stable.  ts is
+    (nt, km, jmt, imt) with T = ts[0], S = ts[1]."""
+    km = ts.shape[1]
+    idx = torch.arange(km, device=ts.device).reshape(km, 1, 1)
+    ocean = torch.broadcast_to((idx < kmt[None]).to(ts.dtype),
+                               ts.shape[1:]).contiguous()
+    mnorm = region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so, dztxcl)
+    return apply_region_means(ts.contiguous(), mnorm.contiguous(), ocean)

@@ -1,0 +1,60 @@
+"""Stencil shift helpers and boundary conditions (torch).
+
+Fields are whole-domain tensors ``(..., jmt, imt)`` and stencils are
+composed from shift operators, as in ``uvic_tpu.ops.stencil``
+(reference: fdift.h/fdifm.h statement functions, util.F:789-815).
+
+Index conventions (0-based):
+- ``E(a)[..., j, i] == a[..., j, i+1]`` (east neighbor), periodic in x,
+- ``N(a)[..., j, i] == a[..., j+1, i]``, periodic in y; the wrapped rows
+  0/jmt-1 are solid walls that callers mask,
+- ``DN(a)[..., k, j, i] == a[..., k+1, j, i]`` (level below), zero-filled
+  beyond the bottom; ``UP`` the level above.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def E(a):
+    return torch.roll(a, -1, dims=-1)
+
+
+def W(a):
+    return torch.roll(a, 1, dims=-1)
+
+
+def N(a):
+    return torch.roll(a, -1, dims=-2)
+
+
+def S(a):
+    return torch.roll(a, 1, dims=-2)
+
+
+def DN(a, fill=0.0):
+    """Shift in k so index k holds level k+1; bottom filled with ``fill``."""
+    pad = torch.full_like(a[..., -1:, :, :], fill)
+    return torch.cat([a[..., 1:, :, :], pad], dim=-3)
+
+
+def UP(a, fill=0.0):
+    """Shift in k so index k holds level k-1; top filled with ``fill``."""
+    pad = torch.full_like(a[..., :1, :, :], fill)
+    return torch.cat([pad, a[..., :-1, :, :]], dim=-3)
+
+
+def setbcx(a, cyclic: bool = True):
+    """Zonal boundary condition on the duplicated boundary columns
+    (util.F:789-815): cyclic wrap col 0 <- col imt-2, col imt-1 <- col 1;
+    solid walls zero the boundary columns otherwise.  Returns a new
+    tensor."""
+    out = a.clone()
+    if cyclic:
+        out[..., 0] = a[..., -2]
+        out[..., -1] = a[..., 1]
+    else:
+        out[..., 0] = 0.0
+        out[..., -1] = 0.0
+    return out

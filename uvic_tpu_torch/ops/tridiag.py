@@ -1,0 +1,69 @@
+"""Vertical tridiagonal solve (implicit vertical diffusion), torch.
+
+Port of ``uvic_tpu.ops.tridiag`` (source/mom/invtri.F): the Thomas
+algorithm over all (j, i) columns at once, the short k recursion
+(km <= ~20) as a Python loop.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def solve_tridiag_masked(a, b, c, f, mask, eps=1.0e-30):
+    """Solve the masked tridiagonal systems a*z[k-1] + b*z[k] + c*z[k+1] = f.
+
+    All inputs are (km, ...) with per-column land masking: masked levels
+    produce 0 (invtri.F multiplies the decomposition by mask with an eps
+    regularizer so land columns stay finite).
+    """
+    km = a.shape[0]
+    bet = mask[0] / (b[0] + eps)
+    z = [f[0] * bet]
+    e = [torch.zeros_like(f[0])]
+    for k in range(1, km):
+        e_k = c[k - 1] * bet
+        bet = mask[k] / (b[k] - a[k] * e_k + eps)
+        z.append((f[k] - a[k] * z[-1]) * bet)
+        e.append(e_k)
+    for k in range(km - 2, -1, -1):
+        z[k] = z[k] - e[k + 1] * z[k + 1]
+    return torch.stack(z)
+
+
+def invtri(z, topbc, botbc, dcb, tdt, kmz, mask, grid_dztr, grid_dztur,
+           grid_dztlr, aidif):
+    """Implicit vertical diffusion update (invtri.F:1-115).
+
+    z      : (km, jmt, imt) right-hand side (tracer or velocity at tau+1)
+    topbc  : (jmt, imt) surface flux b.c.
+    botbc  : (jmt, imt) bottom flux b.c.
+    dcb    : (km, jmt, imt) mixing coefficient at cell bottoms
+    tdt    : (km,) effective 2*dt per level (includes dtxcel acceleration)
+    kmz    : (jmt, imt) int level count (kmt or kmu)
+    mask   : (km, jmt, imt) land mask
+    returns: (km, jmt, imt) solution
+    """
+    km = z.shape[0]
+    tdt = tdt.reshape(km, 1, 1)
+    factu = grid_dztur.reshape(km, 1, 1) * tdt * aidif
+    factl = grid_dztlr.reshape(km, 1, 1) * tdt * aidif
+
+    dcb_up = torch.cat([dcb[:1], dcb[:-1]], dim=0)  # dcb[k-1], k=0->0
+    mask_dn = torch.cat([mask[1:], mask[-1:]], dim=0)
+    a = -dcb_up * factu * mask
+    c = -dcb * factl * mask_dn
+    a[0] = 0.0
+    c[-1] = 0.0
+    b = 1.0 - a - c
+    f = z * mask
+
+    # top flux enters level 0; bottom flux leaves level kb-1
+    dztr = grid_dztr.reshape(km, 1, 1)
+    f[0] = f[0] + topbc * tdt[0] * dztr[0] * aidif * mask[0]
+    kb = torch.clamp(kmz - 1, min=1)  # invtri.F:79 max(2,kmz), 0-based
+    levels = torch.arange(km, device=z.device).reshape(km, 1, 1)
+    is_bot = levels == kb[None]
+    f = f - torch.where(is_bot, botbc[None] * tdt * dztr * aidif * mask,
+                        torch.zeros_like(f))
+    return solve_tridiag_masked(a, b, c, f, mask)
