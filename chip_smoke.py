@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's flagship ocean step on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the whole check, below
+    python3 chip_smoke.py --times    # kernel times only, one JSON line
 
 Phases (each failure ends the run with a non-zero exit code):
 
@@ -9,15 +10,29 @@ Phases (each failure ends the run with a non-zero exit code):
    and exit 1; the card's name and power limit as nvidia-smi reports
    them; a CUDA card is required; the TF32 settings.
 1. Build the CUDA kernels (one nvcc call, uvic_tpu_torch/cuda.py) and
-   print the seconds it took and ptxas' register report.
+   print the seconds it took and ptxas' report (registers, shared memory,
+   spills); fail if a kernel spills.
 2. Build the flagship ocean (102x102x19, nt=2, float32) on the card,
    prime it and take a few leapfrog steps.  Add seeded noise to T and S
    (unstable columns for convection, horizontal gradients for the
    diffusion, isopycnal and limiter terms) and capture the inputs each
    kernel receives in one more step from there.  Each kernel is held
    against its plain PyTorch version on those inputs, on the card,
-   within the tolerance stated below, and both are timed with CUDA
-   events.
+   within the tolerance stated below.  Times are CUDA-event medians:
+   `ms`, `plain_ms` and `library_ms` are one call between two events, as
+   a caller that waits on each call sees it (the wrapper's host time
+   included); `device_ms` is the device time of one wrapper call, from
+   a CUDA graph of GRAPH_REPS calls replayed back to back (no host time
+   in it).  The plain versions' and the library call's device times
+   are printed too (not the CG's: its host loop reads scalars back).
+   `launches_per_call` is the number of device kernels torch.profiler
+   records for one wrapper call.  The tracer step is also timed with
+   the L2 cache flushed (64 MB written) before each launch; the CG
+   reads back the CTAs its cluster launched with (`cluster`), prints
+   its time per iteration from a zero guess, the time of a solve
+   started from the solution (setup, one trip and the close), and its
+   zero-guess time per iteration at the default cluster and at 8, the
+   portable size, in the order 8, default, default, 8.
 3. A small-input reference: the flagship physics on a 34x40x8 grid,
    float32 on the card against float64 on the CPU (plain versions).
 4. The main path: from the flagship state of phase 2 without the noise,
@@ -27,20 +42,31 @@ Phases (each failure ends the run with a non-zero exit code):
 
 The last two lines of standard output are a JSON line describing each
 kernel and the result line {"ok": true, "device": {...}}.
+
+With --times the script builds the flagship and captures the kernels'
+inputs as in phase 2, then prints one JSON line of the three wrappers'
+`ms` and `device_ms` and the CG's iteration counts.  It uses only entry
+points that every version of the port has, so a copy of this script run
+from another checkout's root times that checkout's kernels: the way two
+commits are compared on one card in one call.
 """
 
 import dataclasses
 import faulthandler
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 WATCHDOG_S = 600
 N_STEPS = 20
 N_WARM = 3
 N_TIMED = 30
+GRAPH_REPS = 20
+L2_FLUSH_BYTES = 64 << 20       # more than the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12         # H100 SXM, fp32 outside the tensor cores
 
@@ -88,7 +114,8 @@ def card_line():
 
 
 def cuda_time_ms(fn, n=N_TIMED, warm=3):
-    """Median kernel time of fn() over n calls, CUDA events."""
+    """Median time of fn() over n calls, each between two CUDA events
+    (host time of fn included)."""
     import torch
     for _ in range(warm):
         fn()
@@ -102,6 +129,46 @@ def cuda_time_ms(fn, n=N_TIMED, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, flush=None, n=5):
+    """Device time of one fn() call: the median over n replays of a CUDA
+    graph of GRAPH_REPS calls, divided by GRAPH_REPS.  With flush, the
+    graph runs flush() before each call and the time of a graph of the
+    flushes alone is taken off."""
+    import torch
+
+    def per_call(body):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(3):
+                body()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPH_REPS):
+                body()
+        graph.replay()
+        times = []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / GRAPH_REPS)
+        return statistics.median(times)
+
+    if flush is None:
+        return per_call(fn)
+
+    def both():
+        flush()
+        fn()
+
+    return per_call(both) - per_call(flush)
 
 
 def inc_err(got, ref, base):
@@ -178,10 +245,33 @@ def capture_step(m, state, forcing):
     return state, seen
 
 
+def kernels_per_call(fn):
+    """Device kernels (and other device activities) that one fn() call
+    launches, as torch.profiler records them."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():   # the profiler warns when run again
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if "CUDA" in str(getattr(e, "device_type", "")))
+    if n < 1:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    return n
+
+
 def check_tracer(m, seen):
     import torch
-    from uvic_tpu_torch.ops.tracer_kernel import (fct_tracer_step,
-                                                  fct_tracer_step_ref)
+    from uvic_tpu_torch.ops.tracer_kernel import (blocks_per_sm,
+                                                  fct_tracer_step,
+                                                  fct_tracer_step_ref,
+                                                  tracer_launch)
     args, kw = seen["tracer"]
     got = fct_tracer_step(*args, **kw)
     ref = fct_tracer_step_ref(*args, **kw)
@@ -196,12 +286,31 @@ def check_tracer(m, seen):
     if not worst <= TOL_TRACER:
         raise AssertionError(f"tracer step: err / increment {worst} > "
                              f"{TOL_TRACER}")
-    ms = cuda_time_ms(lambda: fct_tracer_step(*args, **kw))
-    plain_ms = cuda_time_ms(lambda: fct_tracer_step_ref(*args, **kw))
+
+    def kernel():
+        return fct_tracer_step(*args, **kw)
+
+    def plain():
+        return fct_tracer_step_ref(*args, **kw)
+
+    ms = cuda_time_ms(kernel)
+    dev_ms = device_ms(kernel)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    cold_ms = device_ms(kernel, flush=lambda: scratch.fill_(1.0))
+    plain_ms = cuda_time_ms(plain)
+    plain_dev_ms = device_ms(plain)
+    per_call = kernels_per_call(kernel)
     consts, t_tau, tm1, vet, vnt, vbt, dcb, stf, btf, src, twodt, tmask, \
         kmt = args
     isow = kw.get("isow")
     nt, km, jmt, imt = t_tau.shape
+    blocks, threads, smem = tracer_launch(nt, km, jmt, imt)
+    say(f"  one launch: {blocks} blocks of {threads} threads, {smem} bytes "
+        f"of shared memory each, {blocks_per_sm(km, imt)} blocks per SM; "
+        f"{per_call} device kernel(s) per call")
+    say(f"  device time {dev_ms:.4f} ms with the inputs in L2, "
+        f"{cold_ms:.4f} ms with L2 flushed before each launch; plain "
+        f"version {plain_dev_ms:.4f} ms")
     vol, plane = km * jmt * imt, jmt * imt
     nbytes = 4 * (3 * nt * vol + 5 * vol + 2 * nt * plane
                   + (18 * vol if isow is not None else 0)
@@ -210,7 +319,8 @@ def check_tracer(m, seen):
     b_ms, b_by = bound(nbytes, 400.0 * nt * vol)
     return dict(name="fct_tracer_step", max_abs_err=worst_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, bytes=nbytes)
+                library_ms=None, bytes=nbytes, device_ms=dev_ms,
+                launches_per_call=per_call)
 
 
 def check_convect(seen):
@@ -246,20 +356,32 @@ def check_convect(seen):
         raise AssertionError(f"convection: err / increment {worst} > "
                              f"{TOL_CONVECT}")
 
+    def kernel():
+        return apply_region_means(ts, mnorm, ocean)
+
+    def plain():
+        return apply_region_means_ref(ts, mnorm, ocean)
+
     def library():
         return torch.where(ocean[None] > 0,
                            torch.einsum("klji,nlji->nkji", mnorm, ts), ts)
 
-    ms = cuda_time_ms(lambda: apply_region_means(ts, mnorm, ocean))
-    plain_ms = cuda_time_ms(lambda: apply_region_means_ref(ts, mnorm, ocean))
+    ms = cuda_time_ms(kernel)
+    dev_ms = device_ms(kernel)
+    plain_ms = cuda_time_ms(plain)
     library_ms = cuda_time_ms(library)
+    per_call = kernels_per_call(kernel)
+    say(f"  device time {dev_ms:.4f} ms; plain version "
+        f"{device_ms(plain):.4f} ms, library call {device_ms(library):.4f}"
+        f" ms; {per_call} device kernel(s) per call")
     nt, km, jmt, imt = ts.shape
     vol = km * jmt * imt
     nbytes = 4 * (2 * nt * vol + km * vol + vol)
     b_ms, b_by = bound(nbytes, 2.0 * km * nt * vol)
     return dict(name="apply_region_means", max_abs_err=worst_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, bytes=nbytes)
+                library_ms=library_ms, bytes=nbytes, device_ms=dev_ms,
+                launches_per_call=per_call)
 
 
 def check_cg(m, seen):
@@ -268,44 +390,82 @@ def check_cg(m, seen):
     tens of trips at the flagship shape.  The JSON line carries the
     captured solve."""
     import torch
-    from uvic_tpu_torch.ops.cg_kernel import congrad_cuda, congrad_ref
+    from uvic_tpu_torch.ops.cg_kernel import (CGSolver, congrad_cuda,
+                                              congrad_launch, congrad_ref,
+                                              max_active_clusters)
     guess, forc, c2dtsf, tol = seen["cg"]
     solver = m.cg_solver
+    lay = solver.layout
     jmt, imt = guess.shape
+    say(f"  clusters of {lay.cluster} CTAs, bands of at most {lay.rmax} "
+        f"rows, {lay.smem_bytes} bytes of shared memory per CTA; the card "
+        f"holds {max_active_clusters(solver)} such clusters at once")
     plane = jmt * imt
     nbytes = 4 * (9 + 1 + 1 + 2 + 1) * plane
     out = {}
     for case, g0 in (("warm", guess), ("cold", torch.zeros_like(guess))):
-        got, it_got = congrad_cuda(solver, g0, forc, c2dtsf, tol)
+        got, info = congrad_launch(solver, g0, forc, c2dtsf, tol)
         ref, it_ref = congrad_ref(solver.cf_unit, solver.isl, g0, forc,
                                   c2dtsf, tol, solver.max_iter,
                                   solver.cyclic)
         torch.cuda.synchronize()
-        it_got, it_ref = int(it_got), int(it_ref)
+        it_got, ctas, it_ref = int(info[0]), int(info[1]), int(it_ref)
         err, rel = rel_err(got, ref)
-        say(f"  {case} guess: dpsi max abs err {err:.3e} (rel {rel:.3e}, "
-            f"tolrsf {tol:.1e}); iterations kernel {it_got}, "
-            f"plain {it_ref}")
+        say(f"  {case} guess: launched as a cluster of {ctas} CTAs; dpsi "
+            f"max abs err {err:.3e} (rel {rel:.3e}, tolrsf {tol:.1e}); "
+            f"iterations kernel {it_got}, plain {it_ref}")
         if not err <= TOL_CG_TOLRSF * tol:
             raise AssertionError(f"CG: err {err} > {TOL_CG_TOLRSF} x tolrsf")
         if not abs(it_got - it_ref) <= max(3, 0.1 * it_ref):
             raise AssertionError(f"CG: iterations {it_got} vs {it_ref}")
         if not it_got < solver.max_iter:
             raise AssertionError("CG kernel did not converge")
-        ms = cuda_time_ms(lambda: congrad_cuda(solver, g0, forc, c2dtsf,
-                                               tol))
+        if not ctas >= 2:
+            raise AssertionError(f"CG: a cluster of {ctas} CTAs")
+
+        def kernel():
+            return congrad_cuda(solver, g0, forc, c2dtsf, tol)
+
+        ms = cuda_time_ms(kernel)
+        dev_ms = device_ms(kernel)
         plain_ms = cuda_time_ms(
             lambda: congrad_ref(solver.cf_unit, solver.isl, g0, forc,
                                 c2dtsf, tol, solver.max_iter,
                                 solver.cyclic), n=5, warm=1)
-        say(f"  {case} guess: {ms:.4f} ms ({ms / it_got * 1e3:.1f} us per "
-            f"iteration), plain {plain_ms:.4f} ms")
+        say(f"  {case} guess: {ms:.4f} ms, device time {dev_ms:.4f} ms "
+            f"({dev_ms / it_got * 1e3:.2f} us per iteration), plain "
+            f"{plain_ms:.4f} ms")
         # per iteration: 9-point stencil (18 flops) + ~30 elementwise and
         # reduction flops per cell, counted from csrc/congrad.cu
         b_ms, b_by = bound(nbytes, 48.0 * plane * it_got)
         out[case] = dict(name="congrad", max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, bytes=nbytes)
+                         library_ms=None, bytes=nbytes, device_ms=dev_ms,
+                         cluster=ctas, iters=it_got)
+        if case == "warm":
+            out[case]["launches_per_call"] = kernels_per_call(kernel)
+            # from the plain version's solution: setup, a trip, the close
+            _, it_sol = congrad_cuda(solver, ref, forc, c2dtsf, tol)
+            sol_ms = device_ms(lambda: congrad_cuda(solver, ref, forc,
+                                                    c2dtsf, tol))
+            say(f"  from the solution: device time {sol_ms:.4f} ms, "
+                f"{int(it_sol)} iteration(s)")
+    cold = out["cold"]
+    say(f"  zero guess: {cold['device_ms'] / cold['iters'] * 1e3:.2f} us per"
+        f" iteration")
+    # the default cluster against the portable size, on the zero guess
+    zero = torch.zeros_like(guess)
+    portable = CGSolver(solver.cf_unit, solver.isl, solver.max_iter,
+                        solver.cyclic, cluster=8)
+    per_iter = {}
+    for sv in (portable, solver, solver, portable):
+        _, info = congrad_launch(sv, zero, forc, c2dtsf, tol)
+        ctas, it = int(info[1]), int(info[0])
+        us = device_ms(lambda: congrad_cuda(sv, zero, forc, c2dtsf,
+                                            tol)) / it * 1e3
+        per_iter.setdefault(ctas, []).append(f"{us:.3f}")
+    say("  zero guess, us per iteration by cluster size (order 8, "
+        f"default, default, 8): {json.dumps(per_iter)}")
     return out["warm"]
 
 
@@ -351,7 +511,58 @@ def small_reference():
             raise AssertionError(f"small reference: {name} rel err {rel}")
 
 
-def main():
+def flagship_inputs():
+    """The flagship model on the card, its state after N_WARM leapfrog
+    steps, its forcing, and the arguments each kernel wrapper receives in
+    one step from that state with seeded noise added."""
+    from uvic_tpu_torch.entry import _flagship
+    m, state, forcing = _flagship(small=False)
+    for _ in range(N_WARM):
+        state = m.step(state, forcing, leapfrog=True)
+    _, seen = capture_step(m, perturbed(m, state), forcing)
+    return m, state, forcing, seen
+
+
+def times_only():
+    """--times: `ms` and `device_ms` of the three kernel wrappers on the
+    captured flagship inputs, one JSON line."""
+    import torch
+    import uvic_tpu_torch
+    from uvic_tpu_torch.ops.cg_kernel import congrad_cuda
+    from uvic_tpu_torch.ops.convection import (apply_region_means,
+                                               region_mixing_matrix)
+    from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
+    m, _, _, seen = flagship_inputs()
+    args, kw = seen["tracer"]
+    ts, kmt, eos_c, eos_to, eos_so, dztxcl = seen["convect"]
+    km = ts.shape[1]
+    mnorm = region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so,
+                                 dztxcl).contiguous()
+    idx = torch.arange(km, device=ts.device).reshape(km, 1, 1)
+    ocean = torch.broadcast_to((idx < kmt[None]).to(ts.dtype),
+                               ts.shape[1:]).contiguous()
+    guess, forc, c2dtsf, tol = seen["cg"]
+    zero = torch.zeros_like(guess)
+    solver = m.cg_solver
+    calls = {
+        "fct_tracer_step": lambda: fct_tracer_step(*args, **kw),
+        "apply_region_means": lambda: apply_region_means(ts, mnorm, ocean),
+        "congrad_warm": lambda: congrad_cuda(solver, guess, forc, c2dtsf,
+                                             tol),
+        "congrad_zero": lambda: congrad_cuda(solver, zero, forc, c2dtsf,
+                                             tol),
+    }
+    out = {"package": str(Path(uvic_tpu_torch.__file__).parent),
+           "card": card_line()}
+    for name, fn in calls.items():
+        out[name] = {"ms": cuda_time_ms(fn), "device_ms": device_ms(fn)}
+    out["cg_iters"] = {"warm": int(calls["congrad_warm"]()[1]),
+                       "zero": int(calls["congrad_zero"]()[1])}
+    say(json.dumps(out))
+    return 0
+
+
+def main(argv):
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     card = card_line()
@@ -361,10 +572,16 @@ def main():
     if not torch.cuda.is_available():
         say("no CUDA device")
         return 1
+    if argv == ["--times"]:
+        code = times_only()
+        faulthandler.cancel_dump_traceback_later()
+        return code
+    if argv:
+        say(f"unknown arguments {argv}")
+        return 2
     import uvic_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from uvic_tpu_torch.cuda import LIBRARY
-    from uvic_tpu_torch.entry import _flagship
-    from uvic_tpu_torch.ops.cg_kernel import congrad_cuda
+    from uvic_tpu_torch.ops.cg_kernel import congrad_launch
     from uvic_tpu_torch.ops.convection import apply_region_means
     from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
     say(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -378,12 +595,12 @@ def main():
     for line in LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("  ptxas: " + line.strip())
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and int(spill.group(1)) > 0:
+            raise AssertionError("a kernel spills: " + line.strip())
 
     say("phase 2: kernels against their plain versions, flagship shapes")
-    m, state, forcing = _flagship(small=False)
-    for _ in range(N_WARM):
-        state = m.step(state, forcing, leapfrog=True)
-    _, seen = capture_step(m, perturbed(m, state), forcing)
+    m, state, forcing, seen = flagship_inputs()
     say(" fct_tracer_step")
     k_tracer = check_tracer(m, seen)
     say(" apply_region_means")
@@ -393,9 +610,10 @@ def main():
     for k in (k_tracer, k_convect, k_cg):
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
-        say(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms"
-            f"{lib}, bound {k['bound_ms']:.4f} ms by {k['bound_by']}, "
-            f"{k['bytes']} bytes)")
+        say(f"  {k['name']}: {k['ms']:.4f} ms one call between events "
+            f"(device time {k['device_ms']:.4f} ms; plain "
+            f"{k['plain_ms']:.4f} ms{lib}; bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}, {k['bytes']} bytes)")
 
     say("phase 3: small-input reference, f32 card vs f64 CPU")
     small_reference()
@@ -403,7 +621,7 @@ def main():
     say(f"phase 4: main path, {N_STEPS} flagship leapfrog steps")
     fct_tracer_step.launches = 0
     apply_region_means.launches = 0
-    congrad_cuda.launches = 0
+    congrad_launch.launches = 0
     step_ms, cg_iters = [], []
     for _ in range(N_STEPS):
         torch.cuda.synchronize()
@@ -414,7 +632,7 @@ def main():
         cg_iters.append(int(m.last_cg_iters))
     launches = {"fct_tracer_step": fct_tracer_step.launches,
                 "apply_region_means": apply_region_means.launches,
-                "congrad": congrad_cuda.launches}
+                "congrad": congrad_launch.launches}
     for name in ("t", "u", "psi0"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
             raise AssertionError(f"non-finite {name} after the main path")
@@ -439,12 +657,16 @@ def main():
     kernels = []
     for k in (k_tracer, k_convect, k_cg):
         src, rep = sources[k["name"]]
-        kernels.append({"name": k["name"], "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[k["name"]],
-                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"],
-                        "library_ms": k["library_ms"]})
+        entry = {"name": k["name"], "route": "cuda", "source": src,
+                 "replaces": rep, "launches": launches[k["name"]],
+                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                 "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                 "device_ms": k["device_ms"],
+                 "launches_per_call": k["launches_per_call"]}
+        if "cluster" in k:
+            entry["cluster"] = k["cluster"]
+        kernels.append(entry)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
@@ -456,4 +678,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

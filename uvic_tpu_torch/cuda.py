@@ -31,7 +31,9 @@ _F = ctypes.c_float
 # C signatures of the kernels' launch functions (see csrc/*.cu)
 _SIGNATURES = {
     "uvic_fct_tracer_step": [_P] * 16 + [_I] * 4 + [_F, _I, _P],
-    "uvic_congrad": [_P] * 8 + [_I] * 5 + [_F, _F, _P],
+    "uvic_congrad": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
+    "uvic_congrad_max_clusters": [_I, _I],
+    "uvic_fct_tracer_blocks_per_sm": [_I, _I],
     "uvic_region_means_apply": [_P] * 4 + [_I] * 3 + [_P],
 }
 
@@ -93,7 +95,8 @@ def check_cuda(name, tensors, dtype=torch.float32):
     ``tensors`` maps a name to ``(tensor, shape)``; a None tensor (an
     absent optional input) and a None shape are not checked."""
     for key, (t, shape) in tensors.items():
-        if t is None:
+        if t is None or (t.is_cuda and t.dtype == dtype and t.is_contiguous()
+                         and (shape is None or t.shape == shape)):
             continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {key} is on {t.device}, not cuda")

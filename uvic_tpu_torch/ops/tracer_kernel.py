@@ -12,24 +12,43 @@ tracer_adv_flx.F:376-1005, invtri.F:1-115.
 
 ``TracerStepConsts`` packs the static grid factors once, in the layout
 the kernel reads; ``fct_tracer_step`` launches the kernel
-(``csrc/tracer_step.cu``) for CUDA tensors and takes
-``fct_tracer_step_ref`` for CPU tensors.
+(``csrc/tracer_step.cu``: one launch, a block per row and tracer) for
+CUDA tensors and takes ``fct_tracer_step_ref`` for CPU tensors;
+``tracer_launch`` gives the launch's blocks, threads and shared memory.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..cuda import check_cuda, launch, ptr
+from ..cuda import LIBRARY, check_cuda, launch, ptr
 from .advection import fct_flux
 from .stencil import DN, E, N, S, UP, W, setbcx
 from .tridiag import invtri
+
+MAX_THREADS = 256           # csrc/tracer_step.cu MAXNT
+SMEM_LIMIT = 232448         # bytes of shared memory a block may use
+
+
+def tracer_launch(nt, km, jmt, imt):
+    """(blocks, threads per block, dynamic shared-memory bytes per block)
+    of the tracer kernel: a block per (row, tracer), two threads per
+    column, and the rolling window of csrc/tracer_step.cu SMEM_ROWS."""
+    ncol = -(-imt // 32) * 32
+    rows = (5 * (5 + 2 * 4 + 3 * 2)   # tm1, t_tau, tmask, vet/vnt/vbt rings
+            + 3 + 2 + 2 * 23          # dcb, source, weight rings
+            + 6 * 3                   # jif on rows j-1..j+1
+            + 2 * 16                  # fluxes of two levels
+            + 2 * 2 * (1 + 3 + 1)     # ratios x, y, z of two levels
+            + 2)                      # the second half's tendency terms
+    return jmt * nt, 2 * ncol, 4 * (rows * imt + 2 * km * ncol)
 
 
 class TracerStepConsts:
     """Static factors of the tracer step.
 
-    kfac (6, km): row 0 twodt (filled per call), 1 dzt2r, 2 dztr,
+    kfac (6, km): row 0 twodt (filled per call by ``kfac_at`` for the
+    plain version; the kernel reads twodt_k itself), 1 dzt2r, 2 dztr,
     3 dzwr at cell bottoms, 4 dztur, 5 dztlr.
     jif (6, jmt, imt): cstdxt2r, cstdyt2r, cstdxtr, ah*cstdxur, and
     (yA, yB) = (ah*csu*dyur, 1/(cst*dyt)) in the flux form, else
@@ -86,6 +105,14 @@ def _iso_tendency(tm, isow, tmask, yb, cstdxtr, dztr):
     return ((fe * E(tmask) - W(fe) * W(tmask)) * cstdxtr
             + (fn * N(tmask) - S(fn) * S(tmask)) * yb
             + (UP(fb) - fb) * dztr)
+
+
+def blocks_per_sm(km, imt):
+    """Blocks of the tracer kernel one SM of the card holds at once."""
+    n = LIBRARY.get().uvic_fct_tracer_blocks_per_sm(km, imt)
+    if n < 0:
+        raise RuntimeError(f"uvic_fct_tracer_blocks_per_sm: CUDA error {-n}")
+    return n
 
 
 def fct_tracer_step_ref(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf,
@@ -161,23 +188,26 @@ def fct_tracer_step(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf, btf,
     nt, km, jmt, imt = t_tau.shape
     if (isow is not None) != consts.has_iso:
         raise ValueError("fct_tracer_step: isow does not match consts")
-    kf = consts.kfac_at(twodt_k).contiguous()
     f4, f3, f2 = t_tau.shape, (km, jmt, imt), (nt, jmt, imt)
     check_cuda("fct_tracer_step", dict(
         t_tau=(t_tau, f4), tm1=(tm1, f4), source=(source, f4),
         vet=(vet, f3), vnt=(vnt, f3), vbt=(vbt, f3), diff_cbt=(diff_cbt, f3),
         tmask=(tmask, f3), stf=(stf, f2), btf=(btf, f2),
-        isow=(isow, (18,) + f3), kfac=(kf, (6, km)),
+        isow=(isow, (18,) + f3), twodt_k=(twodt_k, (km,)),
+        kfac=(consts.kfac, (6, km)),
         jif=(consts.jif, (6, jmt, imt))))
     check_cuda("fct_tracer_step", dict(kmt=(kmt, (jmt, imt))),
                dtype=torch.int32)
-    ratio = torch.empty((6,) + tuple(t_tau.shape), dtype=t_tau.dtype,
-                        device=t_tau.device)
+    _, threads, smem = tracer_launch(nt, km, jmt, imt)
+    if threads > MAX_THREADS or smem > SMEM_LIMIT:
+        raise ValueError(f"fct_tracer_step: {imt} columns need {threads} "
+                         f"threads and {smem} bytes of shared memory")
     out = torch.empty_like(t_tau)
     launch("uvic_fct_tracer_step", ptr(t_tau), ptr(tm1), ptr(vet), ptr(vnt),
            ptr(vbt), ptr(tmask), ptr(diff_cbt), ptr(stf), ptr(btf),
-           ptr(source), ptr(isow), ptr(kf), ptr(consts.jif), ptr(kmt),
-           ptr(ratio), ptr(out), nt, km, jmt, imt, consts.aidif,
+           ptr(source), ptr(isow), ptr(twodt_k), ptr(consts.kfac),
+           ptr(consts.jif), ptr(kmt),
+           ptr(out), nt, km, jmt, imt, consts.aidif,
            int(consts.ydiff_fluxform))
     fct_tracer_step.launches += 1
     return out
