@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship ocean step on one NVIDIA card.
+"""Drive the PyTorch port's flagship ocean steps on one NVIDIA card.
 
     python3 chip_smoke.py            # the whole check, below
     python3 chip_smoke.py --times    # kernel times only, one JSON line
@@ -25,23 +25,51 @@ Phases (each failure ends the run with a non-zero exit code):
    a CUDA graph of GRAPH_REPS calls replayed back to back (no host time
    in it).  The plain versions' and the library call's device times
    are printed too (not the CG's: its host loop reads scalars back).
-   `launches_per_call` is the number of device kernels torch.profiler
-   records for one wrapper call.  The tracer step is also timed with
+   The tracer step is also timed with
    the L2 cache flushed (64 MB written) before each launch; the CG
    reads back the CTAs its cluster launched with (`cluster`), prints
    its time per iteration from a zero guess, the time of a solve
    started from the solution (setup, one trip and the close), and its
    zero-guess time per iteration at the default cluster and at 8, the
    portable size, in the order 8, default, default, 8.
+   Then the full-MOBI flagship (nt=41): the inputs of one MOBI step,
+   with its bgc source, from the primed MOBI state with the same T/S
+   noise and NOISE_BGC of log-normal noise on every bgc tracer; the
+   tracer step and the apply are held against their plain versions on
+   them, and the tracer step also in its non-isopycnal form (harmonic
+   y-diffusion, no weight stack, aidif = 0) on the nt=2 inputs.
 3. A small-input reference: the flagship physics on a 34x40x8 grid,
    float32 on the card against float64 on the CPU (plain versions).
-4. The main path: from the flagship state of phase 2 without the noise,
-   the launch counters are set to 0, 20 leapfrog steps run through the
-   model's entry points, the counters must each read 20, and t, u and
-   psi must be finite.
+4. The main path at nt=2: from the flagship state of phase 2 without the
+   noise, the launch counters are set to 0, 20 leapfrog steps run
+   through the model's entry points, the counters must each read 20,
+   and t, u and psi must be finite.  Then `run_scan` over N_SCAN steps
+   (one CUDA graph per step type, a mixing step included) must equal
+   the same steps taken eagerly with run_scan's semantics bitwise, and
+   each graph must hold exactly one launch of each kernel (the
+   wrappers' counters, read across each capture).
+5. The main path at nt=41, the full-MOBI flagship: the MOBI sources,
+   float32 on the card against float64 on the CPU on the 34x40x8 MOBI
+   grid (plain versions); `run_scan` over N_SCAN steps from the primed
+   state (capture, instantiation, replay times, CG iterations, one
+   launch of each kernel captured in each graph); two
+   eager steps with run_scan's semantics from its state after
+   N_SCAN - 2 steps (a mixing step and a leapfrog step; the launch
+   counters must read 2) equal to their replay bitwise; every field
+   finite.
+6. torch.profiler, last (a session taken after an earlier one and ~1e5
+   eager launches records nothing on the card): `launches_per_call`,
+   the device kernels one call of each checked wrapper launches; and,
+   at nt=2 and nt=41, one replay of each step type, in which each of
+   the three kernels must run exactly once, with the device kernels per
+   replayed step (profiled again, up to REPLAY_SESSIONS times, when the
+   profiler lost a kernel's record; see check_replay_counts).
 
 The last two lines of standard output are a JSON line describing each
-kernel and the result line {"ok": true, "device": {...}}.
+kernel (`launches` is phase 4's eager count; `launches_by_path` the
+counts on each path by the wrappers' counters: over the eager steps,
+and per replayed step type as captured in its graph; `nt41` the phase 2 readings on the
+MOBI inputs) and the result line {"ok": true, "device": {...}}.
 
 With --times the script builds the flagship and captures the kernels'
 inputs as in phase 2, then prints one JSON line of the three wrappers'
@@ -63,6 +91,7 @@ from pathlib import Path
 
 WATCHDOG_S = 600
 N_STEPS = 20
+N_SCAN = 17                     # run_scan steps: nmix + 1, a mixing step
 N_WARM = 3
 N_TIMED = 30
 GRAPH_REPS = 20
@@ -74,6 +103,11 @@ FP32_FLOP_PER_S = 67e12         # H100 SXM, fp32 outside the tensor cores
 # captured (standard deviations at the equator, scaled by cos(latitude);
 # S is in model units, (psu - 35) / 1000).
 NOISE_T, NOISE_S, NOISE_SEED = 0.5, 1e-4, 0
+# Relative (log-normal) noise on every bgc tracer of the nt=41 inputs, so
+# that each tracer's increment is a sizeable fraction of its value and
+# the tolerance below, relative to the increment, means the same for
+# every tracer.
+NOISE_BGC = 0.05
 
 # Tolerances.
 #   tracer step and region-mean apply: max |kernel - plain| relative to
@@ -95,10 +129,24 @@ NOISE_T, NOISE_S, NOISE_SEED = 0.5, 1e-4, 0
 #     comparison on the CPU (f32 vs f64 plain versions) drifts 4e-6 (t),
 #     2e-6 (u), 1e-6 (psi); t and u get 1e-4 for the card's other
 #     summation orders, psi 1e-3 (the CG stops at tolrsf = 5e-4 of psi).
+#   MOBI sources on the small grid (f32 card vs f64 CPU, one call of
+#     the leapfrog instance on mobi_small_inputs): max |err| relative to
+#     each tracer's largest |source|.  The same comparison on the CPU
+#     (f32 vs f64 plain versions, printed by phase 5 beside the card's)
+#     drifts 2.2e-4 at worst (diatn15, then diat, o2, the carbon
+#     tracers): a source is (final - initial pool) / c2dtts, an increment
+#     ~1e-3 of the pool, so f32 keeps ~4 digits of it.  The limit is ~10x
+#     that.
 TOL_TRACER = 3e-5
 TOL_CONVECT = 1.5e-5
 TOL_CG_TOLRSF = 10.0
 TOL_SMALL = dict(t=1e-4, u=1e-4, psi0=1e-3)
+TOL_MOBI_SRC_CPU_DRIFT = 2.2e-4
+TOL_MOBI_SRC = 2e-3
+REPLAY_SESSIONS = 3
+KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
+                "apply_region_means": "region_means_kernel",
+                "congrad": "congrad_cluster_kernel"}
 
 
 def say(*args):
@@ -204,13 +252,23 @@ def perturbed(m, state):
     from uvic_tpu_torch.ops.stencil import setbcx
     rng = np.random.default_rng(NOISE_SEED)
     shape = tuple(state.t.shape[1:])
+    cst = np.asarray(m.params.grid.cst)[:, None]
     noise = np.stack([NOISE_T * rng.standard_normal(shape),
-                      NOISE_S * rng.standard_normal(shape)])
-    noise *= np.asarray(m.params.grid.cst)[:, None]
+                      NOISE_S * rng.standard_normal(shape)]) * cst
     d = torch.as_tensor(noise, dtype=state.t.dtype,
                         device=state.t.device) * m.tmask
     d = setbcx(d, m.cyclic)
-    return dataclasses.replace(state, t=state.t + d, tm1=state.tm1 + d)
+    t, tm1 = state.t.clone(), state.tm1.clone()
+    t[:2] += d
+    tm1[:2] += d
+    nbgc = state.t.shape[0] - 2
+    if nbgc > 0:
+        f = np.exp(NOISE_BGC * rng.standard_normal((nbgc,) + shape) * cst)
+        f = setbcx(torch.as_tensor(f, dtype=t.dtype, device=t.device),
+                   m.cyclic)
+        t[2:] *= f
+        tm1[2:] *= f
+    return dataclasses.replace(state, t=t, tm1=tm1)
 
 
 def capture_step(m, state, forcing):
@@ -266,25 +324,41 @@ def kernels_per_call(fn):
     return n
 
 
-def check_tracer(m, seen):
+def say_errors(errs, tol):
+    """Print each tracer's (err, rel, inc), or the three worst and a
+    summary when there are many; return the worst rel and err."""
+    order = sorted(range(len(errs)), key=lambda n: -errs[n][1])
+    shown = order if len(errs) <= 2 else order[:3]
+    for n in shown:
+        err, rel, inc = errs[n]
+        say(f"  tracer {n}: max abs err {err:.3e}, max increment {inc:.3e},"
+            f" err / increment {rel:.3e} (tolerance {tol})")
+    if len(errs) > len(shown):
+        say(f"  ({len(errs)} tracers, the {len(shown)} worst shown)")
+    return max(e[1] for e in errs), max(e[0] for e in errs)
+
+
+def check_tracer(m, seen, label="fct_tracer_step", consts=None):
+    """The tracer step against its plain version on captured inputs;
+    ``consts`` replaces the captured step's constants (and drops the
+    isopycnal weight stack) for another form of the step."""
     import torch
     from uvic_tpu_torch.ops.tracer_kernel import (blocks_per_sm,
                                                   fct_tracer_step,
                                                   fct_tracer_step_ref,
                                                   tracer_launch)
     args, kw = seen["tracer"]
+    if consts is not None:
+        args, kw = (consts,) + tuple(args[1:]), dict(kw, isow=None)
     got = fct_tracer_step(*args, **kw)
     ref = fct_tracer_step_ref(*args, **kw)
     torch.cuda.synchronize()
     tm1 = args[2]
-    worst, worst_abs = 0.0, 0.0
-    for n in range(got.shape[0]):
-        err, rel, inc = inc_err(got[n], ref[n], tm1[n])
-        say(f"  tracer {n}: max abs err {err:.3e}, max increment {inc:.3e},"
-            f" err / increment {rel:.3e} (tolerance {TOL_TRACER})")
-        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+    worst, worst_abs = say_errors(
+        [inc_err(got[n], ref[n], tm1[n]) for n in range(got.shape[0])],
+        TOL_TRACER)
     if not worst <= TOL_TRACER:
-        raise AssertionError(f"tracer step: err / increment {worst} > "
+        raise AssertionError(f"{label}: err / increment {worst} > "
                              f"{TOL_TRACER}")
 
     def kernel():
@@ -299,20 +373,19 @@ def check_tracer(m, seen):
     cold_ms = device_ms(kernel, flush=lambda: scratch.fill_(1.0))
     plain_ms = cuda_time_ms(plain)
     plain_dev_ms = device_ms(plain)
-    per_call = kernels_per_call(kernel)
     consts, t_tau, tm1, vet, vnt, vbt, dcb, stf, btf, src, twodt, tmask, \
         kmt = args
     isow = kw.get("isow")
     nt, km, jmt, imt = t_tau.shape
     blocks, threads, smem = tracer_launch(nt, km, jmt, imt)
     say(f"  one launch: {blocks} blocks of {threads} threads, {smem} bytes "
-        f"of shared memory each, {blocks_per_sm(km, imt)} blocks per SM; "
-        f"{per_call} device kernel(s) per call")
+        f"of shared memory each, {blocks_per_sm(km, imt)} blocks per SM")
     say(f"  device time {dev_ms:.4f} ms with the inputs in L2, "
         f"{cold_ms:.4f} ms with L2 flushed before each launch; plain "
         f"version {plain_dev_ms:.4f} ms")
     vol, plane = km * jmt * imt, jmt * imt
     nbytes = 4 * (3 * nt * vol + 5 * vol + 2 * nt * plane
+                  + (nt * vol if src is not None else 0)
                   + (18 * vol if isow is not None else 0)
                   + 6 * km + 7 * plane)
     # ~400 flops per tracer cell, counted from csrc/tracer_step.cu
@@ -320,7 +393,8 @@ def check_tracer(m, seen):
     return dict(name="fct_tracer_step", max_abs_err=worst_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, bytes=nbytes, device_ms=dev_ms,
-                launches_per_call=per_call)
+                plain_device_ms=plain_dev_ms, cold_device_ms=cold_ms,
+                per_call_fn=kernel)
 
 
 def check_convect(seen):
@@ -346,12 +420,9 @@ def check_convect(seen):
     got = apply_region_means(ts, mnorm, ocean)
     ref = apply_region_means_ref(ts, mnorm, ocean)
     torch.cuda.synchronize()
-    worst, worst_abs = 0.0, 0.0
-    for n in range(got.shape[0]):
-        err, rel, inc = inc_err(got[n], ref[n], ts[n])
-        say(f"  tracer {n}: max abs err {err:.3e}, max increment {inc:.3e},"
-            f" err / increment {rel:.3e} (tolerance {TOL_CONVECT})")
-        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+    worst, worst_abs = say_errors(
+        [inc_err(got[n], ref[n], ts[n]) for n in range(got.shape[0])],
+        TOL_CONVECT)
     if not worst <= TOL_CONVECT:
         raise AssertionError(f"convection: err / increment {worst} > "
                              f"{TOL_CONVECT}")
@@ -370,10 +441,9 @@ def check_convect(seen):
     dev_ms = device_ms(kernel)
     plain_ms = cuda_time_ms(plain)
     library_ms = cuda_time_ms(library)
-    per_call = kernels_per_call(kernel)
+    plain_dev_ms, library_dev_ms = device_ms(plain), device_ms(library)
     say(f"  device time {dev_ms:.4f} ms; plain version "
-        f"{device_ms(plain):.4f} ms, library call {device_ms(library):.4f}"
-        f" ms; {per_call} device kernel(s) per call")
+        f"{plain_dev_ms:.4f} ms, library call {library_dev_ms:.4f} ms")
     nt, km, jmt, imt = ts.shape
     vol = km * jmt * imt
     nbytes = 4 * (2 * nt * vol + km * vol + vol)
@@ -381,7 +451,9 @@ def check_convect(seen):
     return dict(name="apply_region_means", max_abs_err=worst_abs, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, bytes=nbytes, device_ms=dev_ms,
-                launches_per_call=per_call)
+                plain_device_ms=plain_dev_ms,
+                library_device_ms=library_dev_ms,
+                per_call_fn=kernel)
 
 
 def check_cg(m, seen):
@@ -443,7 +515,7 @@ def check_cg(m, seen):
                          library_ms=None, bytes=nbytes, device_ms=dev_ms,
                          cluster=ctas, iters=it_got)
         if case == "warm":
-            out[case]["launches_per_call"] = kernels_per_call(kernel)
+            out[case]["per_call_fn"] = kernel
             # from the plain version's solution: setup, a trip, the close
             _, it_sol = congrad_cuda(solver, ref, forc, c2dtsf, tol)
             sol_ms = device_ms(lambda: congrad_cuda(solver, ref, forc,
@@ -509,6 +581,223 @@ def small_reference():
         say(f"  {name}: rel err {rel:.3e} (tolerance {tol})")
         if not (np.isfinite(a).all() and rel <= tol):
             raise AssertionError(f"small reference: {name} rel err {rel}")
+
+
+def mobi_small_inputs(m):
+    """A healthy MOBI state on the model's grid (registry values, a
+    thermocline, 5% of log-normal noise) and seeded light and ice fields,
+    as NumPy arrays."""
+    import numpy as np
+    g = m.params.grid
+    idx = m.tracer_index
+    rng = np.random.default_rng(2)
+    shape = (g.km, g.jmt, g.imt)
+    t = np.empty((m.nt,) + shape)
+    for i, tr in enumerate(idx.tracers):
+        t[i] = tr.init * np.exp(0.05 * rng.standard_normal(shape))
+    t[idx.itemp] = (2.0 + 20.0 * np.exp(-np.asarray(g.zt) / 800e2)
+                    )[:, None, None] + 0.5 * rng.standard_normal(shape)
+    t[idx.isalt] = 1e-4 * rng.standard_normal(shape)
+    t *= np.asarray(m.params.topo.tmask)
+    plane = (g.jmt, g.imt)
+    swr = 2.0e5 * (1.0 + 0.2 * rng.standard_normal(plane))
+    aice = rng.uniform(0.0, 1.0, plane) * (rng.uniform(size=plane) < 0.3)
+    return t, swr, aice, 100.0 * aice, 20.0 * aice
+
+
+def mobi_small_sources(device, dtype):
+    """The leapfrog instance's MOBI sources on the 34x40x8 flagship-
+    physics grid with ``mobi_full()``, as a float64 NumPy array."""
+    import dataclasses
+    import torch
+    from uvic_tpu_torch.config import mobi_full, small_config
+    from uvic_tpu_torch.models.ocean.model import make_ocean
+    cfg = small_config(imt=40, jmt=34, km=8).replace(dtype=dtype,
+                                                     bgc=mobi_full())
+    cfg = cfg.replace(ocean=dataclasses.replace(
+        cfg.ocean, isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
+        gthflx=True, aniso_visc=True, aniso_zonal=True))
+    m = make_ocean(cfg, device=device)
+    t, swr, aice, hice, hsno = (torch.as_tensor(x, dtype=m.dtype,
+                                                device=m.device)
+                                for x in mobi_small_inputs(m))
+    src = m.npzd[True].sources(t, m.kmt, m.tmask, swr, aice, hice, hsno,
+                               m.tlat_rad, torch.tensor(0.45, dtype=m.dtype,
+                                                        device=m.device))
+    return src.double().cpu().numpy(), m.tracer_index.names
+
+
+def mobi_small_reference():
+    """MOBI sources: card f32 against CPU f64 on the small grid, beside
+    the same comparison of CPU f32 against CPU f64 (the drift the
+    tolerance is set from)."""
+    import numpy as np
+    got, names = mobi_small_sources("cuda", "float32")
+    ref, _ = mobi_small_sources("cpu", "float64")
+    cpu32, _ = mobi_small_sources("cpu", "float32")
+
+    def worst(a):
+        out = (0.0, None)
+        for n, name in enumerate(names):
+            scale = np.abs(ref[n]).max()
+            err = np.abs(a[n] - ref[n]).max()
+            rel = err / scale if scale > 0 else (0.0 if err == 0 else np.inf)
+            if not np.isfinite(a[n]).all():
+                raise AssertionError(f"MOBI sources: non-finite {name}")
+            out = max(out, (rel, name), key=lambda x: x[0])
+        return out
+
+    (rel, name), (drift, drift_name) = worst(got), worst(cpu32)
+    say(f"  worst tracer {name}: err / largest source {rel:.3e} "
+        f"(tolerance {TOL_MOBI_SRC}); CPU f32 against f64: {drift:.3e} "
+        f"({drift_name}; {TOL_MOBI_SRC_CPU_DRIFT} when the limit was set)")
+    if not rel <= TOL_MOBI_SRC:
+        raise AssertionError(f"MOBI sources: {name} rel err {rel}")
+
+
+def same_state(a, b):
+    """max |a - b| over every tensor field of two states (0 = bitwise)."""
+    import torch
+    from uvic_tpu_torch.models.ocean.graphs import STATE_FIELDS
+    return max(float(torch.max(torch.abs(getattr(a, f).double()
+                                         - getattr(b, f).double())))
+               for f in STATE_FIELDS)
+
+
+def replay_counts(m, state, forcing):
+    """Device kernels of one replayed step, by kernel, for the step type
+    the state's itt selects (torch.profiler, CUDA activity only)."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            m.run_scan(state, forcing, 1)
+            torch.cuda.synchronize()
+    counts = {k: 0 for k in KERNEL_NAMES}
+    total = 0
+    for e in prof.events():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        total += 1
+        for k, kname in KERNEL_NAMES.items():
+            if kname in e.name:
+                counts[k] += 1
+    return counts, total
+
+
+def check_replay_counts(m, state, forcing, label):
+    """One launch of each kernel on the device in a replay of each step
+    type; returns the device kernels per step by step type.
+
+    The exact count of each kernel's nodes in a graph is say_graphs's,
+    taken at capture; this is the device's side of it.  torch.profiler
+    loses a few kernel records in a session of ~1.4e5 (42 in one run on
+    the card, the CG's among them), so a step type whose session does
+    not show each kernel exactly once is profiled again, up to
+    REPLAY_SESSIONS times, and each kernel's largest count over the
+    sessions must be 1."""
+    import dataclasses
+    nmix = m.cfg.ocean.nmix
+    per_step = {}
+    for kind, itt in (("leapfrog", 1), ("mixing", nmix)):
+        most, totals = {k: 0 for k in KERNEL_NAMES}, []
+        for _ in range(REPLAY_SESSIONS):
+            counts, total = replay_counts(
+                m, dataclasses.replace(state, itt=itt), forcing)
+            most = {k: max(most[k], c) for k, c in counts.items()}
+            totals.append(total)
+            if all(c == 1 for c in counts.values()):
+                break
+        say(f"  {label} replayed {kind} step: {max(totals)} device kernels "
+            f"(sessions: {totals}); {json.dumps(most)}")
+        for k, c in most.items():
+            if c != 1:
+                raise AssertionError(f"{label} {kind} replay: {k} ran {c} "
+                                     "times")
+        per_step[kind] = max(totals)
+    return per_step
+
+
+def scan_vs_eager(m, state, forcing, nsteps, label):
+    """``run_scan`` from ``state`` against the same steps taken eagerly
+    with run_scan's semantics (launch counters reset before them):
+    bitwise.  Returns (eager end state, eager wall ms per step, counts)."""
+    import torch
+    from uvic_tpu_torch.ops.cg_kernel import congrad_launch
+    from uvic_tpu_torch.ops.convection import apply_region_means
+    from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
+    nmix = m.cfg.ocean.nmix
+    fct_tracer_step.launches = 0
+    apply_region_means.launches = 0
+    congrad_launch.launches = 0
+    e, step_ms = state, []
+    for _ in range(nsteps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = m._step(e, forcing, leapfrog=(e.itt % nmix) != 0, scan=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {"fct_tracer_step": fct_tracer_step.launches,
+              "apply_region_means": apply_region_means.launches,
+              "congrad": congrad_launch.launches}
+    for k, c in counts.items():
+        if c != nsteps:
+            raise AssertionError(f"{label} eager: {k} launched {c} times in "
+                                 f"{nsteps} steps")
+    r = m.run_scan(state, forcing, nsteps)
+    torch.cuda.synchronize()
+    diff = same_state(r, e)
+    say(f"  {label}: run_scan over {nsteps} steps (itt {state.itt}.."
+        f"{state.itt + nsteps - 1}) against the same steps taken eagerly: "
+        f"max |diff| {diff:.3e} (bitwise required)")
+    if diff != 0.0 or r.itt != e.itt:
+        raise AssertionError(f"{label}: run_scan differs from the eager "
+                             f"steps by {diff}")
+    return e, statistics.median(step_ms), counts
+
+
+def timed_scan(m, state, forcing, nsteps):
+    """(end state, wall ms per replayed step) of a run_scan call."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = m.run_scan(state, forcing, nsteps)
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3 / nsteps
+
+
+def say_graphs(m, label):
+    """Capture and instantiation times of the model's two graphs, and
+    the kernel nodes each holds: the launches each wrapper made while
+    its graph was captured (counted by the wrappers, not the profiler),
+    which must be exactly one of each kernel.  Returns {kernel:
+    {"leapfrog": n, "mixing": n}}."""
+    g = m._graphs
+    say(f"  graphs: capture {g.capture_s[True]:.2f} s (leapfrog), "
+        f"{g.capture_s[False]:.2f} s (mixing); instantiation "
+        f"{g.instantiate_s[True]:.2f} s, {g.instantiate_s[False]:.2f} s")
+    per_kernel = {k: {"leapfrog": g.captured[True][k],
+                      "mixing": g.captured[False][k]}
+                  for k in KERNEL_NAMES}
+    say(f"  kernel launches captured per step type: "
+        f"{json.dumps(per_kernel)}")
+    for k, by_kind in per_kernel.items():
+        for kind, c in by_kind.items():
+            if c != 1:
+                raise AssertionError(f"{label} {kind} graph holds {c} "
+                                     f"launches of {k}")
+    return per_kernel
+
+
+def check_finite(state, label):
+    import torch
+    from uvic_tpu_torch.models.ocean.graphs import STATE_FIELDS
+    for name in STATE_FIELDS:
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"non-finite {name} after {label}")
 
 
 def flagship_inputs():
@@ -583,7 +872,9 @@ def main(argv):
     from uvic_tpu_torch.cuda import LIBRARY
     from uvic_tpu_torch.ops.cg_kernel import congrad_launch
     from uvic_tpu_torch.ops.convection import apply_region_means
-    from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
+    from uvic_tpu_torch.ops.tracer_kernel import (TracerStepConsts,
+                                                  fct_tracer_step)
+    from uvic_tpu_torch.entry import _flagship
     say(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     say(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
@@ -607,13 +898,33 @@ def main(argv):
     k_convect = check_convect(seen)
     say(" congrad")
     k_cg = check_cg(m, seen)
-    for k in (k_tracer, k_convect, k_cg):
+    say(" fct_tracer_step, non-isopycnal form (harmonic y-diffusion, "
+        "no weight stack, aidif 0), nt=2 inputs")
+    k_plain_form = check_tracer(m, seen, "non-isopycnal tracer step",
+                                TracerStepConsts(m.g, m.cfg.ocean.ah, 0.0,
+                                                 ydiff_fluxform=False,
+                                                 has_iso=False))
+    say(" the full-MOBI flagship (nt=41): inputs of one step with its "
+        "bgc source")
+    m41, s41, f41 = _flagship(mobi=True)
+    _, seen41 = capture_step(m41, perturbed(m41, s41), f41)
+    if seen41["tracer"][0][9] is None:
+        raise AssertionError("the MOBI step passed no source to the "
+                             "tracer step")
+    say(" fct_tracer_step, nt=41 with the MOBI source")
+    k_tracer41 = check_tracer(m41, seen41, "nt=41 tracer step")
+    say(" apply_region_means, nt=41")
+    k_convect41 = check_convect(seen41)
+    for label, k in (("nt=2", k_tracer), ("nt=2", k_convect),
+                     ("nt=2", k_cg), ("nt=2 non-isopycnal", k_plain_form),
+                     ("nt=41", k_tracer41), ("nt=41", k_convect41)):
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
-        say(f"  {k['name']}: {k['ms']:.4f} ms one call between events "
-            f"(device time {k['device_ms']:.4f} ms; plain "
+        say(f"  {k['name']} {label}: {k['ms']:.4f} ms one call between "
+            f"events (device time {k['device_ms']:.4f} ms; plain "
             f"{k['plain_ms']:.4f} ms{lib}; bound {k['bound_ms']:.4f} ms by "
-            f"{k['bound_by']}, {k['bytes']} bytes)")
+            f"{k['bound_by']}, {k['bytes']} bytes; max abs err "
+            f"{k['max_abs_err']:.3e})")
 
     say("phase 3: small-input reference, f32 card vs f64 CPU")
     small_reference()
@@ -647,6 +958,61 @@ def main(argv):
         f"{float(state.u.abs().max()):.4f}, |psi| max "
         f"{float(state.psi0.abs().max()):.4e}")
     say(f"  kernels: {json.dumps(launches)}")
+    say(f"  run_scan, nt=2: {N_SCAN} steps from itt {state.itt}")
+    r, first_ms = timed_scan(m, state, forcing, N_SCAN)
+    captured2 = say_graphs(m, "nt=2")
+    r2, scan_ms = timed_scan(m, state, forcing, N_SCAN)
+    if same_state(r, r2) != 0.0:
+        raise AssertionError("nt=2 run_scan: two replays differ")
+    check_finite(r, "the nt=2 run_scan")
+    say(f"  replayed step {scan_ms:.3f} ms (first call {first_ms:.3f} ms a "
+        f"step with the capture); CG iterations per step: "
+        f"{m.scan_cg_iters.tolist()}")
+    _, eager2_ms, _ = scan_vs_eager(m, state, forcing, N_SCAN, "nt=2")
+    say(f"  the same steps eagerly: {eager2_ms:.3f} ms a step (median)")
+
+    say("phase 5: main path at nt=41, the full-MOBI flagship")
+    say("  MOBI sources, 34x40x8, f32 card vs f64 CPU")
+    mobi_small_reference()
+    say(f"  run_scan, nt=41: {N_SCAN} steps from itt {s41.itt}")
+    r41, first41_ms = timed_scan(m41, s41, f41, N_SCAN)
+    captured41 = say_graphs(m41, "nt=41")
+    say(f"  first call {first41_ms:.1f} ms a step with the capture; CG "
+        f"iterations per step: {m41.scan_cg_iters.tolist()}")
+    r41b, scan41_ms = timed_scan(m41, s41, f41, N_SCAN)
+    if same_state(r41, r41b) != 0.0:
+        raise AssertionError("nt=41 run_scan: two replays differ")
+    check_finite(r41, "the nt=41 run_scan")
+    say(f"  replayed MOBI step {scan41_ms:.1f} ms")
+    mid = m41.run_scan(s41, f41, N_SCAN - 2)
+    _, eager41_ms, eager41 = scan_vs_eager(m41, mid, f41, 2, "nt=41")
+    say(f"  eager MOBI step {eager41_ms:.1f} ms (median of 2); launch "
+        f"counters {json.dumps(eager41)}")
+    idx = m41.tracer_index
+    say(f"  |t| max {float(r41.t[idx.itemp].abs().max()):.4f}, po4 max "
+        f"{float(r41.t[idx['po4']].max()):.4f}, dic max "
+        f"{float(r41.t[idx['dic']].max()):.4f}, |psi| max "
+        f"{float(r41.psi0.abs().max()):.4e}")
+
+    # All profiler sessions come last: on the card, a torch.profiler
+    # session taken after an earlier session and ~1e5 eager launches in
+    # between recorded no device activity at all (PyTorch 2.11).
+    say("phase 6: torch.profiler counts")
+    checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
+               ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
+               ("nt=41", k_convect41))
+    for label, k in checked:
+        k["launches_per_call"] = kernels_per_call(k.pop("per_call_fn"))
+        say(f"  {k['name']} {label}: {k['launches_per_call']} device "
+            "kernel(s) per call")
+    per_step2 = check_replay_counts(m, state, forcing, "nt=2")
+    per_step41 = check_replay_counts(m41, s41, f41, "nt=41")
+    say(f"  kernel launches per MOBI step: {json.dumps(per_step41)}")
+    by_path = {k: {"nt2_eager": launches[k],
+                   "nt2_run_scan_per_step": captured2[k],
+                   "nt41_eager": eager41[k],
+                   "nt41_run_scan_per_step": captured41[k]}
+               for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
                                    "uvic_tpu/ops/pallas_tracer.py:86"),
@@ -663,11 +1029,23 @@ def main(argv):
                  "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                  "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                  "device_ms": k["device_ms"],
-                 "launches_per_call": k["launches_per_call"]}
+                 "launches_per_call": k["launches_per_call"],
+                 "launches_by_path": by_path[k["name"]]}
         if "cluster" in k:
             entry["cluster"] = k["cluster"]
+        k41 = {"fct_tracer_step": k_tracer41,
+               "apply_region_means": k_convect41}.get(k["name"])
+        if k41 is not None:
+            entry["nt41"] = {key: k41[key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
         kernels.append(entry)
-    say(f"total {time.perf_counter() - t_start:.1f} s")
+    say(f"steps: nt=2 eager {statistics.median(step_ms):.3f} ms, replayed "
+        f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "
+        f"{eager41_ms:.1f} ms, replayed {scan41_ms:.1f} ms "
+        f"({per_step41['leapfrog']} kernels)")
+    say(f"total {time.perf_counter() - t_start:.1f} s "
+        f"(watchdog {WATCHDOG_S} s)")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -175,8 +175,30 @@ class OceanConfig:
 
 @dataclass(frozen=True)
 class BgcConfig:
-    """Biogeochemistry suite; the port carries ``"none"`` only."""
-    suite: str = "none"
+    """Biogeochemistry: none | npzd | mobi tracer suites."""
+    suite: str = "none"                        # "none" | "npzd" | "mobi"
+    carbon: bool = False                       # O_carbon (DIC)
+    carbon_13: bool = False
+    carbon_14: bool = False
+    alk: bool = False                          # O_npzd_alk
+    o2: bool = False                           # O_npzd_o2
+    nitrogen: bool = False                     # O_npzd_nitrogen
+    nitrogen_15: bool = False
+    silicon: bool = False                      # O_mobi_silicon
+    iron: bool = False                         # O_mobi_iron
+    caco3: bool = False                        # O_mobi_caco3
+    pa_th: bool = False                        # O_PaTh scavenging tracers
+    cfc: bool = False                          # O_cfcs_data_transient
+    dtnpzd: float = 27000.0                    # bgc source substep [s]
+
+
+def mobi_full() -> "BgcConfig":
+    """The reference's configured MOBI suite (run/mk.in Model_Options):
+    full isotope-enabled biogeochemistry, 41 tracers with T and S."""
+    return BgcConfig(suite="mobi", carbon=True, carbon_13=True,
+                     carbon_14=True, alk=True, o2=True, nitrogen=True,
+                     nitrogen_15=True, silicon=True, iron=True,
+                     caco3=True, pa_th=True, cfc=True)
 
 
 @dataclass(frozen=True)

@@ -6,8 +6,11 @@
 (isopycnal/GM mixing, FCT, full convection, tidal kv, geothermal heat,
 Large-2001 anisotropic viscosity, GD13 equatorial zonal mixing), two
 tracers, in float32, and primes the leapfrog levels with one forward
-step.  ``small=True`` gives the light 34x40x8 configuration of the JAX
-entry (isopycnal/GM mixing off).
+step.  ``mobi=True`` adds the full MOBI suite (``mobi_full()``, 41
+tracers): the initial condition is the same 2-tracer one, extended to 41
+by ``init_state`` with the registry's defaults.  ``small=True`` gives
+the light 34x40x8 configuration of the JAX entry (isopycnal/GM mixing
+off).
 """
 
 from __future__ import annotations
@@ -17,11 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .config import ModelConfig, small_config
+from .config import ModelConfig, mobi_full, small_config
 from .models.ocean.model import make_forcing, make_ocean
 
 
-def _flagship(small=False, device=None, dtype="float32"):
+def _flagship(small=False, device=None, dtype="float32", mobi=False):
     """(model, primed state, forcing) of the flagship configuration."""
     if small:
         cfg = small_config(imt=40, jmt=34, km=8)
@@ -33,6 +36,8 @@ def _flagship(small=False, device=None, dtype="float32"):
             cfg.ocean, isopycmix=True, gent_mcwilliams=True,
             tidal_kv=True, gthflx=True, aniso_visc=True,
             aniso_zonal=True))
+    if mobi:
+        cfg = cfg.replace(bgc=mobi_full())
     m = make_ocean(cfg, device=device)
     g = m.params.grid
     t0 = np.zeros((2, g.km, g.jmt, g.imt))

@@ -10,11 +10,16 @@ island-constrained CG, and the FIR high-latitude filters.  One step:
     -> tracer step -> convection -> filters -> clinic (momentum)
     -> barotropic CG -> new state
 
+With a bgc suite (``npzd`` or ``mobi``) the step adds the suite's
+sources (tracer.F:256-521, ``models/bgc``) to the tracer step.
+
 The three hot spots run as hand-written CUDA kernels when the tensors
 lie on the card (``ops/tracer_kernel.py``, ``ops/convection.py``,
 ``ops/cg_kernel.py``) and as their plain PyTorch versions on the CPU.
-The host schedules leapfrog and forward (mixing) steps; each step is a
-Python call.
+The host schedules leapfrog and forward (mixing) steps.  ``step`` and
+``run`` take one Python call a step; ``run_scan`` replays one CUDA graph
+per step type on the card (``graphs.py``), the counterpart of the
+reference's ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from ...ops.filters import build_hlat_filter
 from ...ops.solvers import IslandIndex
 from ...ops.stencil import setbcx
 from ...ops.tracer_kernel import TracerStepConsts, fct_tracer_step
+from ..bgc.mobi import Mobi
+from ..bgc.npzd import Npzd, NpzdParams
 from .kernels import adv_vel, clinic_step
 from .params import OceanParams, build_ocean_params
 from .tropic import ext_mode_velocity, sfc5pt_unit, tropic_step
@@ -47,18 +54,36 @@ class SurfaceForcing:
 
     smf : (2, jmt, imt) wind stress at U cells [cm^2/s^2]
     stf : (nt, jmt, imt) surface tracer fluxes [tracer-unit * cm/s]
+    swr : (jmt, imt) downward surface shortwave [erg/cm^2/s] (bgc light)
+    aice/hice/hsno : (jmt, imt) sea-ice state for light under ice
+    relyr : 0-d tensor, fractional year for the seasonal declination
     btf : (nt, jmt, imt) bottom tracer fluxes; negative = upward into
           the bottom cell
     """
     smf: torch.Tensor
     stf: torch.Tensor
+    swr: torch.Tensor
+    aice: torch.Tensor
+    hice: torch.Tensor
+    hsno: torch.Tensor
+    relyr: torch.Tensor
     btf: torch.Tensor
 
 
-def make_forcing(smf, stf, btf=None):
-    """SurfaceForcing with zero bottom fluxes by default."""
-    return SurfaceForcing(smf=smf, stf=stf,
-                          btf=torch.zeros_like(stf) if btf is None else btf)
+def make_forcing(smf, stf, swr=None, aice=None, hice=None, hsno=None,
+                 relyr=0.0, btf=None):
+    """SurfaceForcing with the reference's defaults for the optional
+    fields: swr 2e5, no ice, relyr 0 (a 0-d tensor, so a captured step
+    reads it from its buffer), zero bottom fluxes."""
+    z = torch.zeros_like(smf[0])
+    return SurfaceForcing(
+        smf=smf, stf=stf,
+        swr=z + 2.0e5 if swr is None else swr,
+        aice=z if aice is None else aice,
+        hice=z if hice is None else hice,
+        hsno=z if hsno is None else hsno,
+        relyr=torch.as_tensor(relyr, dtype=smf.dtype, device=smf.device),
+        btf=torch.zeros_like(stf) if btf is None else btf)
 
 
 def _check_supported(cfg: ModelConfig):
@@ -81,7 +106,7 @@ def _check_supported(cfg: ModelConfig):
         "full_tensor": o.full_tensor,
         "eb": o.eb,
         "grid.cyclic": not cfg.grid.cyclic,
-        "bgc": cfg.bgc.suite != "none",
+        "bgc": cfg.bgc.suite not in ("none", "npzd", "mobi"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -216,6 +241,21 @@ class OceanModel:
         self.nt = params.nt
         self.tracer_index = params.tracer_index
 
+        # biogeochemistry sources (tracer.F npzd section): one instance
+        # per step interval, keyed by the leapfrog flag
+        self.npzd = None
+        if cfg.bgc.suite in ("npzd", "mobi"):
+            b = cfg.bgc
+            nz_params = NpzdParams(dtnpzd=b.dtnpzd, nitrogen=b.nitrogen,
+                                   o2=b.o2, carbon=b.carbon, alk=b.alk)
+            cls = Mobi if b.suite == "mobi" else Npzd
+            self.npzd = {
+                lf: cls(nz_params, g, self.tracer_index,
+                        (2 if lf else 1) * cfg.ocean.dtts, dt, device)
+                for lf in (True, False)}
+            self.tlat_rad = tn(np.deg2rad(
+                np.broadcast_to(np.asarray(g.yt)[:, None], (jmt, imt))))
+
         # bottom-drag coefficient: scalar, enhanced over the polar cap
         yu_arr = np.asarray(g.yu)
         polar_w = 1.0 / (1.0 + np.exp(-(yu_arr - cfg.ocean.cdbot_polar_lat)
@@ -232,16 +272,23 @@ class OceanModel:
             bag, cfg.ocean.ah, cfg.ocean.aidif if iso else 0.0,
             ydiff_fluxform=iso, has_iso=iso)
         self.last_cg_iters = None
+        self.scan_cg_iters = None
+        self._graphs = None
 
     # ------------------------------------------------------------------
     def init_state(self, t_init=None) -> OceanState:
+        """Cold-start state; a physics-only ``t_init`` (fewer tracers
+        than the registry) is extended with the registry's uniform
+        defaults for the rest."""
         g = self.params.grid
-        if t_init is None:
-            vals = np.array([t.init for t in self.tracer_index.tracers])
-            t_init = (vals[:, None, None, None]
-                      * np.asarray(self.params.topo.tmask)[None])
+        vals = np.array([t.init for t in self.tracer_index.tracers])
+        full = vals[:, None, None, None] \
+            * np.asarray(self.params.topo.tmask)[None]
+        if t_init is not None:
+            t_init = np.asarray(t_init)
+            full[:t_init.shape[0]] = t_init
         return init_ocean_state(self.nt, g.km, g.jmt, g.imt, self.dtype,
-                                self.device, np.asarray(t_init))
+                                self.device, full)
 
     def full_velocity(self, u_int, psi):
         """Internal + external mode, masked (loadmw.F add_ext_mode)."""
@@ -253,9 +300,16 @@ class OceanModel:
 
     # ------------------------------------------------------------------
     def _step(self, state: OceanState, forcing: SurfaceForcing, *,
-              leapfrog: bool) -> OceanState:
+              leapfrog: bool, scan: bool = False) -> OceanState:
         """One ocean step: leapfrog, or a forward mixing step with
-        tau-1 <- tau (mom.F:96-148)."""
+        tau-1 <- tau (mom.F:96-148).
+
+        ``scan`` takes the bgc sources as the reference's ``run_scan``
+        does (``uvic_tpu/models/ocean/model.py:564-567``): the leapfrog
+        instance with the step's interval, so a mixing step takes
+        nbio = round(2 dtts / dtnpzd) substeps of dtts / nbio.  Without
+        it a mixing step takes the forward instance, as ``step`` and
+        ``run`` do in the reference.  The two differ by design."""
         cfg = self.cfg.ocean
         g = self.g
         if leapfrog:
@@ -318,11 +372,22 @@ class OceanModel:
                 vbt_t = vbt + iso.vbtiso
             isow = iso_weight_stack(iso_weight_pack(iso, g))
 
+        # biogeochemistry sources (tracer.F:256-521)
+        source = None
+        if self.npzd is not None:
+            args = (tm1, self.kmt, self.tmask, forcing.swr, forcing.aice,
+                    forcing.hice, forcing.hsno, self.tlat_rad,
+                    forcing.relyr)
+            if scan:
+                source = self.npzd[True].sources(*args, c2dtts=c2dtts)
+            else:
+                source = self.npzd[leapfrog].sources(*args)
+
         # tracer step (tracer.F), convection (convect.F), filtering
         # (tracer.F:980-993)
         t_new = fct_tracer_step(
             self.tracer_consts, t_tau, tm1, vet_t, vnt_t, vbt_t, diff_cbt,
-            stf, btf, None, c2dtts * g.dtxcel, self.tmask, self.kmt,
+            stf, btf, source, c2dtts * g.dtxcel, self.tmask, self.kmt,
             isow=isow)
         t_new = convct_full(t_new, self.kmt, self.eos_c, self.eos_to,
                             self.eos_so, self.dztxcl)
@@ -366,6 +431,35 @@ class OceanModel:
         for _ in range(nsteps):
             state = self.step(state, forcing,
                               leapfrog=(state.itt % nmix) != 0)
+        return state
+
+    def run_scan(self, state: OceanState, forcing: SurfaceForcing,
+                 nsteps: int) -> OceanState:
+        """Run ``nsteps`` with ``cfg.ocean.nmix``'s cadence and the
+        reference ``run_scan``'s step (``_step(..., scan=True)``).
+
+        On the card each step is the replay of one of two CUDA graphs,
+        a leapfrog step and a mixing step, captured at the first call
+        and kept with the model (``graphs.StepGraphs``); a capture that
+        fails raises.  On the CPU it is the same loop of eager steps.
+        Either way the result is a new state and ``state`` stays valid;
+        ``scan_cg_iters`` holds each step's CG iterations (int32 on the
+        model's device).
+        """
+        nmix = self.cfg.ocean.nmix
+        iters = torch.zeros(nsteps, dtype=torch.int32, device=self.device)
+        if self.device.type == "cpu":
+            for n in range(nsteps):
+                state = self._step(state, forcing,
+                                   leapfrog=(state.itt % nmix) != 0,
+                                   scan=True)
+                iters[n] = self.last_cg_iters
+        else:
+            if self._graphs is None:
+                from .graphs import StepGraphs
+                self._graphs = StepGraphs(self, state, forcing)
+            state = self._graphs.run(state, forcing, nsteps, nmix, iters)
+        self.scan_cg_iters = iters
         return state
 
 

@@ -1,10 +1,13 @@
 """Where the flagship ocean step's time goes on the card.
 
-    python3 -m uvic_tpu_torch.profile_step [--steps N]
+    python3 -m uvic_tpu_torch.profile_step [--steps N] [--mobi] [--graph]
 
-Builds the flagship ocean (102x102x19, nt=2, float32) on the card, takes
-a few warm leapfrog steps, times N more without the profiler, then
-profiles N more with ``torch.profiler`` (CPU and CUDA activities).
+Builds the flagship ocean (102x102x19, float32) on the card: nt=2, or
+with ``--mobi`` the full-MOBI suite (nt=41).  Takes a few warm leapfrog
+steps, times N more without the profiler, then profiles N more with
+``torch.profiler`` (CPU and CUDA activities).  The steps are eager
+``m.step`` calls, or with ``--graph`` one ``m.run_scan`` call of N steps
+(CUDA-graph replays; the graphs are captured during the warm-up).
 Prints the card's ``name, power.limit``, the host wall time per step
 with and without the profiler, the summed device kernel time per step
 (busy), the idle share ``1 - busy / wall`` against the wall time without
@@ -35,6 +38,10 @@ def _device_us(evt):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--mobi", action="store_true",
+                    help="the full-MOBI flagship (nt=41)")
+    ap.add_argument("--graph", action="store_true",
+                    help="replayed steps (run_scan) instead of eager ones")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -42,47 +49,60 @@ def main(argv=None):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    m, state, forcing = _flagship(small=False)
-    for _ in range(3):
-        state = m.step(state, forcing, leapfrog=True)
-    torch.cuda.synchronize()
+    m, state, forcing = _flagship(small=False, mobi=args.mobi)
+    n = args.steps
+
+    def steps(state):
+        """n leapfrog steps (the schedule's first mixing step is at
+        itt = nmix), and each step's CG iterations."""
+        if args.graph:
+            state = m.run_scan(state, forcing, n)
+            return state, m.scan_cg_iters.tolist()
+        iters = []
+        for _ in range(n):
+            state = m.step(state, forcing, leapfrog=True)
+            iters.append(int(m.last_cg_iters))
+        return state, iters
+
+    if state.itt + 3 * n > m.cfg.ocean.nmix:
+        raise ValueError(f"--steps {n}: the run would reach a mixing step")
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        state = m.step(state, forcing, leapfrog=True)
+    state, _ = steps(state)                    # warm-up (and the capture)
     torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    print(f"warm-up {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    state, _ = steps(state)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        iters = []
-        for _ in range(args.steps):
-            state = m.step(state, forcing, leapfrog=True)
-            iters.append(m.last_cg_iters)
+        state, iters = steps(state)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
     events = prof.events()
     kernels = [e for e in events
                if getattr(e, "device_type", None) is not None
                and "CUDA" in str(e.device_type)]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / args.steps
-    print(f"profiled {args.steps} leapfrog steps, CG iterations "
-          f"{[int(i) for i in iters]}")
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / n
+    kind = "replayed (run_scan)" if args.graph else "eager"
+    print(f"nt={m.nt}: profiled {n} {kind} leapfrog steps, CG iterations "
+          f"{iters}")
     print(f"wall per step: profiler off {plain_wall_ms:.3f} ms, "
           f"profiler on {wall_ms:.3f} ms")
     print(f"device kernel time per step {busy_ms:.3f} ms, idle share "
           f"{1.0 - busy_ms / plain_wall_ms:.3f} (profiler off; "
           f"{1.0 - busy_ms / wall_ms:.3f} against the profiled steps)")
-    print(f"device kernels per step {len(kernels) / args.steps:.1f}")
+    print(f"device kernels per step {len(kernels) / n:.1f}")
     avg = sorted(prof.key_averages(), key=_device_us, reverse=True)
     print("top device time per step (ms):")
     for e in avg[:15]:
         us = _device_us(e)
         if us <= 0:
             break
-        print(f"  {us / 1e3 / args.steps:8.4f}  x{e.count // args.steps:4d}"
-              f"  {e.key[:90]}")
+        print(f"  {us / 1e3 / n:8.4f}  x{e.count // n:6d}  {e.key[:90]}")
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=25, max_name_column_width=60))
     print(card)
