@@ -25,8 +25,11 @@ Phases (each failure ends the run with a non-zero exit code):
    a CUDA graph of GRAPH_REPS calls replayed back to back (no host time
    in it).  The plain versions' and the library call's device times
    are printed too (not the CG's: its host loop reads scalars back).
-   The tracer step is also timed with
-   the L2 cache flushed (64 MB written) before each launch; the CG
+   The tracer step and the apply are also timed with
+   the L2 cache flushed (64 MB written) before each launch; the apply
+   prints its launch geometry and the blocks an SM holds, and is held
+   against its plain version on seeded random inputs at CONVECT_SHAPES
+   (odd planes, km 1 to 64, nt 1 to 41) and must refuse km 65; the CG
    reads back the CTAs its cluster launched with (`cluster`), prints
    its time per iteration from a zero guess, the time of a solve
    started from the solution (setup, one trip and the close), and its
@@ -59,7 +62,8 @@ Phases (each failure ends the run with a non-zero exit code):
    finite.
 6. torch.profiler, last (a session taken after an earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
-   the device kernels one call of each checked wrapper launches; and,
+   the device kernels one call of each checked wrapper launches (one for
+   the apply); and,
    at nt=2 and nt=41, one replay of each step type, in which each of
    the three kernels must run exactly once, with the device kernels per
    replayed step (profiled again, up to REPLAY_SESSIONS times, when the
@@ -71,9 +75,11 @@ counts on each path by the wrappers' counters: over the eager steps,
 and per replayed step type as captured in its graph; `nt41` the phase 2 readings on the
 MOBI inputs) and the result line {"ok": true, "device": {...}}.
 
-With --times the script builds the flagship and captures the kernels'
-inputs as in phase 2, then prints one JSON line of the three wrappers'
-`ms` and `device_ms` and the CG's iteration counts.  It uses only entry
+With --times the script builds the flagship and the full-MOBI flagship
+and captures the kernels' inputs as in phase 2, then prints one JSON
+line of the three wrappers' `ms`, `device_ms` and output digest (the
+tracer step and the apply at nt=2 and at nt=41) and the CG's iteration
+counts; equal digests mean bitwise equal outputs.  It uses only entry
 points that every version of the port has, so a copy of this script run
 from another checkout's root times that checkout's kernels: the way two
 commits are compared on one card in one call.
@@ -144,6 +150,17 @@ TOL_SMALL = dict(t=1e-4, u=1e-4, psi0=1e-3)
 TOL_MOBI_SRC_CPU_DRIFT = 2.2e-4
 TOL_MOBI_SRC = 2e-3
 REPLAY_SESSIONS = 3
+H100_SMS = 132
+# Shapes (nt, km, jmt, imt) on which the apply is also held against its
+# plain version, on seeded random inputs: planes that are not a multiple
+# of 4 (rows not 16-byte aligned) or of the tile's columns (a partial
+# last tile), km from 1 to the kernel's 64, nt 1, 2, 8 and 9 (a ring of
+# tiles exactly full, and wrapping once) and 41.
+CONVECT_SHAPES = ((41, 19, 7, 13), (1, 1, 5, 7), (41, 1, 4, 9),
+                  (41, 8, 9, 11), (2, 19, 10, 10), (1, 19, 6, 7),
+                  (8, 19, 5, 9), (9, 8, 3, 11), (1, 64, 6, 10),
+                  (41, 64, 3, 7))
+CONVECT_SEED = 5
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -397,11 +414,10 @@ def check_tracer(m, seen, label="fct_tracer_step", consts=None):
                 per_call_fn=kernel)
 
 
-def check_convect(seen):
+def convect_inputs(seen):
+    """(ts, mnorm, ocean, kmt): the apply's arguments in a captured step."""
     import torch
-    from uvic_tpu_torch.ops.convection import (apply_region_means,
-                                               apply_region_means_ref,
-                                               region_mixing_matrix)
+    from uvic_tpu_torch.ops.convection import region_mixing_matrix
     ts, kmt, eos_c, eos_to, eos_so, dztxcl = seen["convect"]
     km = ts.shape[1]
     mnorm = region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so,
@@ -409,6 +425,17 @@ def check_convect(seen):
     idx = torch.arange(km, device=ts.device).reshape(km, 1, 1)
     ocean = torch.broadcast_to((idx < kmt[None]).to(ts.dtype),
                                ts.shape[1:]).contiguous()
+    return ts, mnorm, ocean, kmt
+
+
+def check_convect(seen):
+    import torch
+    from uvic_tpu_torch.ops.convection import (apply_region_means,
+                                               apply_region_means_ref,
+                                               region_means_blocks_per_sm,
+                                               region_means_launch)
+    ts, mnorm, ocean, kmt = convect_inputs(seen)
+    km = ts.shape[1]
     # columns whose mixing matrix is not the identity on some level
     eye = torch.eye(km, dtype=ts.dtype, device=ts.device)[:, :, None, None]
     mixed = int(((mnorm - eye).abs() > 0).any(0).any(0)
@@ -439,12 +466,21 @@ def check_convect(seen):
 
     ms = cuda_time_ms(kernel)
     dev_ms = device_ms(kernel)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    cold_ms = device_ms(kernel, flush=lambda: scratch.fill_(1.0))
     plain_ms = cuda_time_ms(plain)
     library_ms = cuda_time_ms(library)
     plain_dev_ms, library_dev_ms = device_ms(plain), device_ms(library)
-    say(f"  device time {dev_ms:.4f} ms; plain version "
-        f"{plain_dev_ms:.4f} ms, library call {library_dev_ms:.4f} ms")
     nt, km, jmt, imt = ts.shape
+    blocks, cols, slots, smem = region_means_launch(nt, km, jmt, imt)
+    per_sm = region_means_blocks_per_sm(nt, km, cols)
+    say(f"  one launch: {blocks} blocks of {cols} x {km} threads, a ring of "
+        f"{slots} tracer tiles, {smem} bytes of shared memory each; "
+        f"{per_sm} blocks per SM, {blocks / (per_sm * H100_SMS):.2f} waves")
+    say(f"  device time {dev_ms:.4f} ms with the inputs in L2, "
+        f"{cold_ms:.4f} ms with L2 flushed before each launch; plain "
+        f"version {plain_dev_ms:.4f} ms, library call {library_dev_ms:.4f} "
+        "ms")
     vol = km * jmt * imt
     nbytes = 4 * (2 * nt * vol + km * vol + vol)
     b_ms, b_by = bound(nbytes, 2.0 * km * nt * vol)
@@ -452,8 +488,56 @@ def check_convect(seen):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, bytes=nbytes, device_ms=dev_ms,
                 plain_device_ms=plain_dev_ms,
-                library_device_ms=library_dev_ms,
-                per_call_fn=kernel)
+                library_device_ms=library_dev_ms, cold_device_ms=cold_ms,
+                blocks_per_sm=per_sm, per_call_fn=kernel)
+
+
+def random_convect_inputs(rng, nt, km, jmt, imt):
+    """(ts, mnorm, ocean) on the card from a NumPy generator: T-like
+    tracers, a random mixing matrix, a random depth per column."""
+    import numpy as np
+    import torch
+    shape = (km, jmt, imt)
+    kmt = rng.integers(0, km + 1, size=(jmt, imt))
+    ocean = (np.arange(km)[:, None, None] < kmt[None]).astype(np.float64)
+    return [torch.as_tensor(x, dtype=torch.float32, device="cuda")
+            for x in (15.0 + 5.0 * rng.standard_normal((nt,) + shape),
+                      rng.uniform(0.0, 2.0 / km, (km,) + shape), ocean)]
+
+
+def check_convect_shapes():
+    """The apply against its plain version on seeded random inputs at the
+    CONVECT_SHAPES, and its refusal of more levels than it takes."""
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.ops.convection import (MAX_KM, apply_region_means,
+                                               apply_region_means_ref,
+                                               region_means_launch)
+    rng = np.random.default_rng(CONVECT_SEED)
+    for nt, km, jmt, imt in CONVECT_SHAPES:
+        args = random_convect_inputs(rng, nt, km, jmt, imt)
+        got = apply_region_means(*args)
+        ref = apply_region_means_ref(*args)
+        torch.cuda.synchronize()
+        err, rel, _ = max((inc_err(got[n], ref[n], args[0][n])
+                           for n in range(nt)), key=lambda e: e[1])
+        _, cols, slots, _ = region_means_launch(nt, km, jmt, imt)
+        plane = jmt * imt
+        say(f"  nt {nt}, km {km}, {jmt}x{imt} (plane {plane}: {cols}-column "
+            f"tiles, the last {plane - (plane - 1) // cols * cols} wide; "
+            f"{slots} slot(s)): max abs err {err:.3e}, err / increment "
+            f"{rel:.3e}")
+        if not rel <= TOL_CONVECT:
+            raise AssertionError(f"convection at {(nt, km, jmt, imt)}: err / "
+                                 f"increment {rel} > {TOL_CONVECT}")
+    ts = torch.zeros((1, MAX_KM + 1, 2, 2), device="cuda")
+    try:
+        apply_region_means(ts, torch.zeros((MAX_KM + 1,) + ts.shape[1:],
+                                           device="cuda"), ts[0])
+    except ValueError as e:
+        say(f"  km {MAX_KM + 1} refused: {e}")
+    else:
+        raise AssertionError(f"convection: km {MAX_KM + 1} was not refused")
 
 
 def check_cg(m, seen):
@@ -812,24 +896,39 @@ def flagship_inputs():
     return m, state, forcing, seen
 
 
+def digest(out):
+    """First 16 hex digits of the SHA-256 of a call's output tensor (the
+    first of a tuple): equal digests mean bitwise equal outputs."""
+    import hashlib
+    t = out[0] if isinstance(out, tuple) else out
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def times_only():
-    """--times: `ms` and `device_ms` of the three kernel wrappers on the
-    captured flagship inputs, one JSON line."""
+    """--times: `ms`, `device_ms` and the output digest of the three
+    kernel wrappers on the captured flagship inputs, of the tracer step
+    and the apply on the captured inputs of one MOBI step (nt=41), and of
+    the apply on seeded random inputs at both shapes, one JSON line.  The
+    captured inputs can differ between two processes (the flagship state
+    they come from is not always bitwise the same), the seeded ones
+    cannot: their digests show whether two trees' kernels agree bitwise."""
+    import numpy as np
     import torch
     import uvic_tpu_torch
+    from uvic_tpu_torch.entry import _flagship
     from uvic_tpu_torch.ops.cg_kernel import congrad_cuda
-    from uvic_tpu_torch.ops.convection import (apply_region_means,
-                                               region_mixing_matrix)
+    from uvic_tpu_torch.ops.convection import apply_region_means
     from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
     m, _, _, seen = flagship_inputs()
+    m41, s41, f41 = _flagship(mobi=True)
+    _, seen41 = capture_step(m41, perturbed(m41, s41), f41)
     args, kw = seen["tracer"]
-    ts, kmt, eos_c, eos_to, eos_so, dztxcl = seen["convect"]
-    km = ts.shape[1]
-    mnorm = region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so,
-                                 dztxcl).contiguous()
-    idx = torch.arange(km, device=ts.device).reshape(km, 1, 1)
-    ocean = torch.broadcast_to((idx < kmt[None]).to(ts.dtype),
-                               ts.shape[1:]).contiguous()
+    args41, kw41 = seen41["tracer"]
+    ts, mnorm, ocean, _ = convect_inputs(seen)
+    ts41, mnorm41, ocean41, _ = convect_inputs(seen41)
+    seeded = {nt: random_convect_inputs(np.random.default_rng(CONVECT_SEED),
+                                        nt, *ts41.shape[1:])
+              for nt in (2, 41)}
     guess, forc, c2dtsf, tol = seen["cg"]
     zero = torch.zeros_like(guess)
     solver = m.cg_solver
@@ -840,11 +939,18 @@ def times_only():
                                              tol),
         "congrad_zero": lambda: congrad_cuda(solver, zero, forc, c2dtsf,
                                              tol),
+        "fct_tracer_step_nt41": lambda: fct_tracer_step(*args41, **kw41),
+        "apply_region_means_nt41": lambda: apply_region_means(
+            ts41, mnorm41, ocean41),
+        "apply_region_means_seeded": lambda: apply_region_means(*seeded[2]),
+        "apply_region_means_seeded_nt41": lambda: apply_region_means(
+            *seeded[41]),
     }
     out = {"package": str(Path(uvic_tpu_torch.__file__).parent),
            "card": card_line()}
     for name, fn in calls.items():
-        out[name] = {"ms": cuda_time_ms(fn), "device_ms": device_ms(fn)}
+        out[name] = {"ms": cuda_time_ms(fn), "device_ms": device_ms(fn),
+                     "digest": digest(fn())}
     out["cg_iters"] = {"warm": int(calls["congrad_warm"]()[1]),
                        "zero": int(calls["congrad_zero"]()[1])}
     say(json.dumps(out))
@@ -896,6 +1002,8 @@ def main(argv):
     k_tracer = check_tracer(m, seen)
     say(" apply_region_means")
     k_convect = check_convect(seen)
+    say(" apply_region_means on random inputs at other shapes")
+    check_convect_shapes()
     say(" congrad")
     k_cg = check_cg(m, seen)
     say(" fct_tracer_step, non-isopycnal form (harmonic y-diffusion, "
@@ -1005,6 +1113,10 @@ def main(argv):
         k["launches_per_call"] = kernels_per_call(k.pop("per_call_fn"))
         say(f"  {k['name']} {label}: {k['launches_per_call']} device "
             "kernel(s) per call")
+        if k["name"] == "apply_region_means" and k["launches_per_call"] != 1:
+            raise AssertionError(f"apply_region_means {label}: "
+                                 f"{k['launches_per_call']} device kernels "
+                                 "per call")
     per_step2 = check_replay_counts(m, state, forcing, "nt=2")
     per_step41 = check_replay_counts(m41, s41, f41, "nt=41")
     say(f"  kernel launches per MOBI step: {json.dumps(per_step41)}")
@@ -1038,7 +1150,9 @@ def main(argv):
         if k41 is not None:
             entry["nt41"] = {key: k41[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")}
+                "bound_by", "library_ms", "cold_device_ms")}
+        if "blocks_per_sm" in k:
+            entry["blocks_per_sm"] = k["blocks_per_sm"]
         kernels.append(entry)
     say(f"steps: nt=2 eager {statistics.median(step_ms):.3f} ms, replayed "
         f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "

@@ -159,9 +159,17 @@ def test_congrad_ref_matches_pallas_cold_and_warm():
             <= 1e-9 * scale
 
 
-def test_region_means_ref_matches_pallas():
+# (nt, km, jmt, imt): the first case's inputs are those of the test
+# before it took shapes; then km 1, 19 and 64 (the CUDA kernel's limit),
+# planes that are not a multiple of 4, and nt 1 and 41.
+REGION_MEANS_SHAPES = [(4, 6, 5, 7), (2, 1, 5, 7), (2, 19, 6, 9),
+                       (1, 64, 3, 5), (41, 8, 7, 11), (41, 19, 2, 3),
+                       (1, 19, 4, 4)]
+
+
+@pytest.mark.parametrize("nt, km, jmt, imt", REGION_MEANS_SHAPES, ids=str)
+def test_region_means_ref_matches_pallas(nt, km, jmt, imt):
     rng = np.random.default_rng(11)
-    nt, km, jmt, imt = 4, 6, 5, 7
     ts = rng.standard_normal((nt, km, jmt, imt))
     m = rng.uniform(0.0, 1.0, (km, km, jmt, imt))
     m /= m.sum(axis=1, keepdims=True)

@@ -34,7 +34,8 @@ _SIGNATURES = {
     "uvic_congrad": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
     "uvic_congrad_max_clusters": [_I, _I],
     "uvic_fct_tracer_blocks_per_sm": [_I, _I],
-    "uvic_region_means_apply": [_P] * 4 + [_I] * 3 + [_P],
+    "uvic_region_means_apply": [_P] * 4 + [_I] * 5 + [_P],
+    "uvic_region_means_blocks_per_sm": [_I, _I, _I],
 }
 
 

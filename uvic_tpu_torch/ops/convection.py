@@ -10,17 +10,24 @@ applied to every tracer.
 
 ``apply_region_means`` is the CUDA kernel that applies M
 (``csrc/convect_apply.cu``, replacing the Pallas kernel
-``_apply_region_means_pallas``); ``apply_region_means_ref`` is its plain
-PyTorch version.  Stability comparisons use the EOS coefficients of the
-upper level of the lower region (convect.F:201-204,232-235).
+``_apply_region_means_pallas``: M read once per call into registers,
+tracer tiles staged in shared memory by asynchronous copies);
+``region_means_launch`` gives its geometry and
+``apply_region_means_ref`` is its plain PyTorch version.  Stability
+comparisons use the EOS coefficients of the upper level of the lower
+region (convect.F:201-204,232-235).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..cuda import check_cuda, launch, ptr
+from ..cuda import LIBRARY, check_cuda, launch, ptr
 from .eos import dens
+
+MAX_KM = 64             # csrc/convect_apply.cu MAX_KM: M's row in registers
+MAX_THREADS = 512       # csrc/convect_apply.cu MAX_THREADS
+STAGES = 8              # csrc/convect_apply.cu STAGES: slots of the ring
 
 
 def _region_means(ts, label, w):
@@ -74,11 +81,43 @@ def apply_region_means_ref(ts, mnorm, ocean):
     return torch.where(ocean[None] > 0, out, ts)
 
 
+def region_means_launch(nt, km, jmt, imt):
+    """(blocks, columns per block, slots, dynamic shared-memory bytes) of
+    the region-mean kernel: a block per tile of ``columns`` cells of the
+    plane at every level (columns x km threads, at most MAX_THREADS) and
+    a ring of ``slots`` tracer tiles (STAGES, fewer when nt is smaller),
+    each held column by column at the kernel's column stride."""
+    if not 1 <= km <= MAX_KM:
+        raise ValueError(f"apply_region_means: {km} levels, the kernel "
+                         f"takes 1 to {MAX_KM}")
+    cols = next(c for c in (32, 16, 8) if c * km <= MAX_THREADS)
+    slots = min(nt, STAGES)
+    return (-(-jmt * imt // cols), cols, slots,
+            4 * slots * cols * column_stride(km))
+
+
+def column_stride(km):
+    """Floats between two columns of a staged tile (csrc/convect_apply.cu
+    stride<KMAX>, KMAX = km rounded up to a multiple of 4): 4 mod 8, so
+    that the 16-byte loads of 8 lanes fall in distinct banks."""
+    kmax = -(-km // 4) * 4
+    return kmax if kmax % 8 == 4 else kmax + 4
+
+
+def region_means_blocks_per_sm(nt, km, cols):
+    """Blocks of the region-mean kernel one SM of the card holds at once."""
+    n = LIBRARY.get().uvic_region_means_blocks_per_sm(nt, km, cols)
+    if n < 0:
+        raise RuntimeError(f"uvic_region_means_blocks_per_sm: CUDA error {-n}")
+    return n
+
+
 def apply_region_means(ts, mnorm, ocean):
     """Apply the region-mixing matrix to all tracers.
 
     ts (nt, km, jmt, imt), mnorm (km, km, jmt, imt), ocean (km, jmt, imt).
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes 1 to MAX_KM levels (ValueError otherwise).
     """
     if ts.device.type == "cpu":
         return apply_region_means_ref(ts, mnorm, ocean)
@@ -86,9 +125,10 @@ def apply_region_means(ts, mnorm, ocean):
     check_cuda("apply_region_means", dict(
         ts=(ts, None), mnorm=(mnorm, (km, km, jmt, imt)),
         ocean=(ocean, (km, jmt, imt))))
+    _, cols, _, smem = region_means_launch(nt, km, jmt, imt)
     out = torch.empty_like(ts)
     launch("uvic_region_means_apply", ptr(ts), ptr(mnorm), ptr(ocean),
-           ptr(out), nt, km, jmt * imt)
+           ptr(out), nt, km, jmt * imt, cols, smem)
     apply_region_means.launches += 1
     return out
 
