@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship ocean steps on one NVIDIA card.
+"""Drive the PyTorch port's flagship ocean steps and its coupled earth
+segment on one NVIDIA card.
 
     python3 chip_smoke.py            # the whole check, below
     python3 chip_smoke.py --times    # kernel times only, one JSON line
@@ -60,20 +61,37 @@ Phases (each failure ends the run with a non-zero exit code):
    N_SCAN - 2 steps (a mixing step and a leapfrog step; the launch
    counters must read 2) equal to their replay bitwise; every field
    finite.
-6. torch.profiler, last (a session taken after an earlier one and ~1e5
+6. The coupled earth segment: ``CoupledModel(earth_config(),
+   topo_kind="earth")`` built on the card from EARTH_RESTART (year 1060)
+   with its relyr; the stages up to the first ocean step of a segment,
+   then the three kernels held against their plain versions on that
+   ocean step's inputs (the segment's forcing, phase 2's noise on T and
+   S; the CG on the earth's six islands, its iteration counts printed)
+   with phase 2's tolerances; EARTH_SEGMENTS segments eagerly (launch
+   counters: ntspos of each kernel a segment) and the same segments
+   replayed from CUDA graphs, one per stage type, equal bitwise (state
+   and time means), with each graph's capture and instantiation seconds,
+   its nodes and its kernel launches; then one year replayed (EARTH_YEAR
+   segments, or as many as EARTH_YEAR_S allows), every second segment's
+   tsi row held against the golden stream's row of that day within
+   TOL_GOLDEN, nconv equal.
+7. torch.profiler, last (a session taken after an earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
    at nt=2 and nt=41, one replay of each step type, in which each of
    the three kernels must run exactly once, with the device kernels per
    replayed step (profiled again, up to REPLAY_SESSIONS times, when the
-   profiler lost a kernel's record; see check_replay_counts).
+   profiler lost a kernel's record; see check_replay_counts); then the
+   device activities of one replayed and one eager earth segment.
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
 counts on each path by the wrappers' counters: over the eager steps,
-and per replayed step type as captured in its graph; `nt41` the phase 2 readings on the
-MOBI inputs) and the result line {"ok": true, "device": {...}}.
+and per replayed step type as captured in its graph, and a segment of
+the earth path, eager and replayed; `nt41` the phase 2 readings on the
+MOBI inputs, `earth` the phase 6 readings on the earth inputs) and the
+result line {"ok": true, "device": {...}}.
 
 With --times the script builds the flagship and the full-MOBI flagship
 and captures the kernels' inputs as in phase 2, then prints one JSON
@@ -161,6 +179,23 @@ CONVECT_SHAPES = ((41, 19, 7, 13), (1, 1, 5, 7), (41, 1, 4, 9),
                   (8, 19, 5, 9), (9, 8, 3, 11), (1, 64, 6, 10),
                   (41, 64, 3, 7))
 CONVECT_SEED = 5
+# The coupled earth segment (phase 6): the restart it starts from (year
+# 1060, the first row of the golden tsi stream), the golden stream, the
+# segments run eagerly and replayed, the year replayed after them (or as
+# many segments of it as EARTH_YEAR_S allows), and each golden column's
+# limit, relative to the golden value: ~5x the largest gaps of the JAX
+# package in float32 on a CPU over the same year (a_sat 6.1e-4, a_shum
+# 4.2e-5, i_area 4.5e-3, i_vol 7.3e-4, o_ke 2.1e-5, o_psi_max 1.8e-4,
+# o_psi_min 2.2e-4, o_sbar 1.4e-11, o_sst 3.5e-5, o_tbar 1.1e-5), two
+# float32 machines' round-off; nconv must be equal.
+EARTH_RESTART = "earth_accept/restart.npz"
+EARTH_GOLDEN = "golden/regression/tsi_10yr_earth_r5.csv"
+EARTH_SEGMENTS = 2
+EARTH_YEAR = 72
+EARTH_YEAR_S = 180.0
+TOL_GOLDEN = dict(a_sat=3e-3, a_shum=2e-4, i_area=2.5e-2, i_vol=4e-3,
+                  o_ke=1e-4, o_psi_max=1e-3, o_psi_min=1e-3, o_sbar=1e-6,
+                  o_sst=2e-4, o_tbar=1e-4)
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -957,6 +992,231 @@ def times_only():
     return 0
 
 
+def earth_capture(m, state):
+    """The coupled segment's stages taken eagerly from ``state`` up to
+    its first ocean step, and the arguments each kernel wrapper receives
+    in an ocean step from there, with the segment's forcing and the
+    phase 2 noise added to T and S."""
+    import torch
+    from uvic_tpu_torch.coupler.driver import FORCING_NAMES, pack_state
+    from uvic_tpu_torch.models.ocean.model import make_forcing
+    ws = pack_state(state)
+    ws["relyr"] = torch.tensor(m.relyr, dtype=m.dtype, device=m.device)
+    host = dict(itt=state.ocean.itt, nats=state.atm.nats,
+                land=state.land is not None)
+    for name, flag in m.schedule(host):
+        if name == "ocean":
+            break
+        ws.update(m.stage(name, flag, ws, host))
+    forcing = make_forcing(**{k: ws["forcing/" + k] for k in FORCING_NAMES})
+    return capture_step(m.ocean, perturbed(m.ocean, state.ocean), forcing)[1]
+
+
+def coupled_diff(a, b):
+    """max |a - b| over every tensor of two coupled states (0 = bitwise)
+    and whether their counters agree."""
+    import torch
+    from uvic_tpu_torch.coupler.driver import pack_state
+    pa, pb = pack_state(a), pack_state(b)
+    diff = max(float(torch.max(torch.abs(pa[k].double() - pb[k].double())))
+               for k in pa)
+    return diff, (a.ocean.itt, a.atm.nats) == (b.ocean.itt, b.atm.nats)
+
+
+def graph_nodes(graph):
+    """Nodes of a captured CUDA graph (kernels, copies, memsets), read
+    with the driver's cuGraphGetNodes; None where the graph's handle is
+    not exposed."""
+    import ctypes
+    raw = getattr(graph, "raw_cuda_graph", None)
+    if raw is None:
+        return None
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(raw()), None, ctypes.byref(n))
+    return int(n.value) if rc == 0 else None
+
+
+def golden_rows():
+    """{days: row} of the golden tsi stream, each row {column: value}."""
+    with open(EARTH_GOLDEN) as f:
+        header = f.readline().strip().split(",")
+        rows = {}
+        for line in f:
+            vals = [float(v) for v in line.strip().split(",")]
+            rows[round(vals[0], 4)] = dict(zip(header[1:], vals[1:]))
+    return rows
+
+
+def earth_phase():
+    """Phase 6: the coupled earth segment on the card.  Returns the
+    kernel checks on earth inputs, the launch counts and the times."""
+    import torch
+    import uvic_tpu_torch.coupler.driver as drv
+    from uvic_tpu_torch.diag.tsi import TsiDiagnostics
+    from uvic_tpu_torch.entry import _earth
+    from uvic_tpu_torch.ops.cg_kernel import congrad_launch
+    from uvic_tpu_torch.ops.convection import apply_region_means
+    from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
+    out = {}
+    t0 = time.perf_counter()
+    m, start = _earth(EARTH_RESTART)
+    relyr0 = m.relyr
+    say(f"  built CoupledModel(earth_config(), topo_kind='earth') from "
+        f"{EARTH_RESTART} in {time.perf_counter() - t0:.1f} s: "
+        f"{m.topo.nisle} islands, itt {start.ocean.itt}, nats "
+        f"{start.atm.nats}, relyr {relyr0!r}; a segment is {m.ntspas} "
+        f"atmosphere and {m.ntspos} ocean steps")
+    if m.topo.nisle != 6:
+        raise AssertionError(f"earth: {m.topo.nisle} islands, not 6")
+
+    say(" kernels on the inputs of an earth segment's ocean step (its "
+        "forcing, phase 2's noise on T and S)")
+    seen = earth_capture(m, start)
+    say(" fct_tracer_step, earth")
+    out["tracer"] = check_tracer(m.ocean, seen, "earth tracer step")
+    say(" apply_region_means, earth")
+    out["convect"] = check_convect(seen)
+    say(" congrad, earth (six islands)")
+    out["cg"] = check_cg(m.ocean, seen)
+
+    counters = (fct_tracer_step, apply_region_means, congrad_launch)
+    for w in counters:
+        w.launches = 0
+    seg_ms, eager = [], start
+    for _ in range(EARTH_SEGMENTS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager = m.run(eager, 1, eager=True)
+        torch.cuda.synchronize()
+        seg_ms.append((time.perf_counter() - t1) * 1e3)
+    eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
+    eager_counts = {"fct_tracer_step": fct_tracer_step.launches,
+                    "apply_region_means": apply_region_means.launches,
+                    "congrad": congrad_launch.launches}
+    per_seg = {k: c / EARTH_SEGMENTS for k, c in eager_counts.items()}
+    say(f"  {EARTH_SEGMENTS} eager segments: "
+        f"{', '.join(f'{t:.1f}' for t in seg_ms)} ms; kernel launches a "
+        f"segment {json.dumps(per_seg)}; BiCGSTAB trips (humidity, "
+        f"temperature) of the last segment's atmosphere steps "
+        f"{m.seg_trips.tolist()}; CG iterations {m.seg_cg_iters.tolist()}")
+    for k, c in per_seg.items():
+        if c != m.ntspos:
+            raise AssertionError(f"earth eager: {k} launched {c} times a "
+                                 f"segment, not {m.ntspos}")
+
+    m.relyr = relyr0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    replayed = m.run(start, EARTH_SEGMENTS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    g = m._graphs
+    diff, counters_equal = coupled_diff(replayed, eager)
+    tavg_diff = max(float(torch.max(torch.abs(
+        m.last_tavg[k].double() - eager_tavg[k].double())))
+        for k in eager_tavg)
+    say(f"  the same {EARTH_SEGMENTS} segments replayed ({first_s:.1f} s "
+        f"with the captures): max |diff| against the eager ones "
+        f"{diff:.3e} in the state, {tavg_diff:.3e} in the time means "
+        "(bitwise required)")
+    if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
+        raise AssertionError("earth: replayed segments differ from the "
+                             "eager ones")
+    for key in g.graphs:
+        say(f"  graph {key[0]}{'' if key[1] is None else f' {key[1]}'}: "
+            f"capture {g.capture_s[key]:.2f} s, instantiation "
+            f"{g.instantiate_s[key]:.2f} s, {graph_nodes(g.graphs[key])} "
+            f"nodes, kernel launches captured {json.dumps(g.captured[key])}")
+    run_counts = {k: 0 for k in eager_counts}
+    nodes = 0
+    for name, flag in m.schedule(dict(itt=start.ocean.itt,
+                                      nats=start.atm.nats)):
+        for k in run_counts:
+            run_counts[k] += g.captured[(name, flag)][k]
+        nodes += graph_nodes(g.graphs[(name, flag)]) or 0
+    say(f"  a replayed segment holds {nodes} graph nodes; kernel launches "
+        f"{json.dumps(run_counts)}")
+    for k, c in run_counts.items():
+        if c != m.ntspos:
+            raise AssertionError(f"earth replay: {k} launched {c} times a "
+                                 f"segment")
+
+    say(f"  one year replayed from {EARTH_RESTART} ({EARTH_YEAR} segments "
+        f"or {EARTH_YEAR_S:.0f} s), each tsi row against {EARTH_GOLDEN}")
+    golden = golden_rows()
+    tsi = TsiDiagnostics(m.ocean, m.embm, deterministic=True)
+    m.relyr = relyr0
+    state, nseg, rows, worst = start, 0, 0, {}
+    rep_ms = []
+    days0 = relyr0 * 360.0
+    t1 = time.perf_counter()
+    while nseg < EARTH_YEAR and time.perf_counter() - t1 < EARTH_YEAR_S:
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state = m.run(state, 1)
+        torch.cuda.synchronize()
+        rep_ms.append((time.perf_counter() - t2) * 1e3)
+        nseg += 1
+        if nseg % 2:
+            continue
+        days = round(round(days0, 4) + 5.0 * nseg, 4)
+        ref = golden[days]
+        row = tsi.compute(state.ocean, state.atm, state.ice)
+        row["nconv"] = float(int(state.ocean.nconv))
+        rows += 1
+        for col, lim in TOL_GOLDEN.items():
+            gap = abs(row[col] - ref[col]) / abs(ref[col])
+            if gap > worst.get(col, (-1.0,))[0]:
+                worst[col] = (gap, days, row[col], ref[col])
+        if row["nconv"] != ref["nconv"]:
+            raise AssertionError(f"earth day {days}: nconv {row['nconv']} "
+                                 f"against {ref['nconv']}")
+    check_finite(state.ocean, "the earth year")
+    say(f"  {nseg} segments replayed in {time.perf_counter() - t1:.1f} s "
+        f"(median {statistics.median(rep_ms):.1f} ms a segment), {rows} "
+        f"tsi rows held against the golden's; nconv equal in each")
+    failed = []
+    for col, lim in TOL_GOLDEN.items():
+        gap, days, got, ref = worst[col]
+        say(f"  {col}: largest relative gap {gap:.3e} (limit {lim:.0e}) at "
+            f"day {days}: {got:.10e} against {ref:.10e}")
+        if not gap <= lim:
+            failed.append(col)
+    if failed:
+        raise AssertionError(f"earth: golden tsi columns out of limits: "
+                             f"{failed}")
+    out.update(eager_ms=statistics.median(seg_ms),
+               replay_ms=statistics.median(rep_ms), eager_counts=per_seg,
+               run_counts=run_counts, graph_nodes=nodes, model=m,
+               start=start, segments=nseg)
+    return out
+
+
+def earth_launches(m, state):
+    """Device activities of one replayed and one eager earth segment
+    (torch.profiler, CUDA activity only; the replay first, since a
+    session after many eager launches can record nothing)."""
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    counts = {}
+    relyr0 = m.relyr
+    for label, eager in (("replayed", False), ("eager", True)):
+        m.relyr = relyr0
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                m.run(state, 1, eager=eager)
+                torch.cuda.synchronize()
+        counts[label] = sum(
+            1 for e in prof.events()
+            if "CUDA" in str(getattr(e, "device_type", "")))
+    m.relyr = relyr0
+    return counts
+
+
 def main(argv):
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
@@ -1102,10 +1362,17 @@ def main(argv):
         f"{float(r41.t[idx['dic']].max()):.4f}, |psi| max "
         f"{float(r41.psi0.abs().max()):.4e}")
 
+    say("phase 6: the coupled earth segment from the year-1060 restart")
+    earth = earth_phase()
+    for key in ("tracer", "convect", "cg"):
+        earth[key].pop("per_call_fn", None)
+    say(f"  earth segment: eager {earth['eager_ms']:.1f} ms, replayed "
+        f"{earth['replay_ms']:.1f} ms (medians)")
+
     # All profiler sessions come last: on the card, a torch.profiler
     # session taken after an earlier session and ~1e5 eager launches in
     # between recorded no device activity at all (PyTorch 2.11).
-    say("phase 6: torch.profiler counts")
+    say("phase 7: torch.profiler counts")
     checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
                ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
                ("nt=41", k_convect41))
@@ -1120,10 +1387,16 @@ def main(argv):
     per_step2 = check_replay_counts(m, state, forcing, "nt=2")
     per_step41 = check_replay_counts(m41, s41, f41, "nt=41")
     say(f"  kernel launches per MOBI step: {json.dumps(per_step41)}")
+    earth_dev = earth_launches(earth["model"], earth["start"])
+    say(f"  device activities of one earth segment: "
+        f"{json.dumps(earth_dev)} (graph nodes of a replayed segment: "
+        f"{earth['graph_nodes']})")
     by_path = {k: {"nt2_eager": launches[k],
                    "nt2_run_scan_per_step": captured2[k],
                    "nt41_eager": eager41[k],
-                   "nt41_run_scan_per_step": captured41[k]}
+                   "nt41_run_scan_per_step": captured41[k],
+                   "earth_eager_per_segment": earth["eager_counts"][k],
+                   "earth_run_per_segment": earth["run_counts"][k]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -1153,11 +1426,23 @@ def main(argv):
                 "bound_by", "library_ms", "cold_device_ms")}
         if "blocks_per_sm" in k:
             entry["blocks_per_sm"] = k["blocks_per_sm"]
+        ke = {"fct_tracer_step": earth["tracer"],
+              "apply_region_means": earth["convect"],
+              "congrad": earth["cg"]}[k["name"]]
+        entry["earth"] = {key: ke[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        if "iters" in ke:
+            entry["earth"]["iters"] = ke["iters"]
         kernels.append(entry)
     say(f"steps: nt=2 eager {statistics.median(step_ms):.3f} ms, replayed "
         f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "
         f"{eager41_ms:.1f} ms, replayed {scan41_ms:.1f} ms "
-        f"({per_step41['leapfrog']} kernels)")
+        f"({per_step41['leapfrog']} kernels); earth segment eager "
+        f"{earth['eager_ms']:.1f} ms ({earth_dev['eager']} device "
+        f"activities), replayed {earth['replay_ms']:.1f} ms "
+        f"({earth_dev['replayed']}; {earth['segments']} segments "
+        "against the golden tsi)")
     say(f"total {time.perf_counter() - t_start:.1f} s "
         f"(watchdog {WATCHDOG_S} s)")
     say(card)

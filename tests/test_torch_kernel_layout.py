@@ -7,7 +7,9 @@ These tables and counts are built in Python by the wrappers and tested
 here.  A plain-PyTorch emulation of the banded CG, with every reduction
 taken band by band and summed in rank order as the kernel does, is held
 against ``congrad_ref`` on the flagship grid's operator and islands, and
-``congrad_ref`` against the JAX package's ``congrad`` on the same system.
+``congrad_ref`` against the JAX package's ``congrad`` on the same system;
+the same on the earth bathymetry (six islands, the coupled
+configuration's grid).
 """
 
 import jax.numpy as jnp
@@ -18,7 +20,7 @@ import torch
 from uvic_tpu.ops.solvers import IslandIndex as JIslandIndex
 from uvic_tpu.ops.solvers import congrad as j_congrad
 
-from uvic_tpu_torch.config import ModelConfig, small_config
+from uvic_tpu_torch.config import ModelConfig, earth_config, small_config
 from uvic_tpu_torch.models.ocean.params import build_ocean_params
 from uvic_tpu_torch.models.ocean.tropic import sfc5pt_unit, sfforc
 from uvic_tpu_torch.ops.cg_kernel import (SMEM_LIMIT, border_source,
@@ -30,12 +32,12 @@ from uvic_tpu_torch.ops.tracer_kernel import SMEM_LIMIT as TRACER_SMEM_LIMIT
 H100_SMS = 132
 
 
-def _system(cfg):
+def _system(cfg, topo_kind="world"):
     """(params, cf_unit, IslandIndex, forcing) of a configuration's grid:
     the 5-point operator at unit timestep and the curl of the entry
     point's sin(3 lat) wind stress over the depth, as tropic_step forms
     it, without stepping the model."""
-    p = build_ocean_params(cfg)
+    p = build_ocean_params(cfg, topo_kind=topo_kind)
     g, topo = p.grid, p.topo
     cf = sfc5pt_unit(np.asarray(g.dxu), np.asarray(g.dyu),
                      np.asarray(g.csu), np.asarray(topo.hr))
@@ -57,6 +59,11 @@ def _system(cfg):
 @pytest.fixture(scope="module")
 def flagship():
     return _system(ModelConfig())
+
+
+@pytest.fixture(scope="module")
+def earth():
+    return _system(earth_config(dtype="float64"), "earth")
 
 
 @pytest.fixture(scope="module")
@@ -298,3 +305,40 @@ def test_congrad_ref_matches_jax_congrad_on_flagship_grid(guess, flagship):
     assert int(jk) == int(it_ref)
     np.testing.assert_allclose(ref.numpy(), np.asarray(jd), rtol=0,
                                atol=1e-9 * float(np.abs(np.asarray(jd)).max()))
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_earth_cg_layout(cluster, earth):
+    """Bands cover each row once, the per-band perimeter lists partition
+    each of the earth's six islands, and a CTA's shared memory fits."""
+    p = earth[0]
+    pid, nisle, imt = p.topo.perim_id, p.topo.nisle, p.grid.imt
+    assert nisle == 6
+    lay = cg_layout(pid, nisle, True, cluster)
+    rows = np.concatenate([np.arange(lay.bands[r], lay.bands[r + 1])
+                           for r in range(lay.cluster)])
+    np.testing.assert_array_equal(rows, np.arange(p.grid.jmt))
+    flat = pid.reshape(-1)
+    for q in range(nisle):
+        segs = []
+        for r in range(lay.cluster):
+            seg = lay.plist[lay.poff[r * nisle + q]:lay.poff[r * nisle + q + 1]]
+            rws = seg // imt
+            assert ((rws >= lay.bands[r]) & (rws < lay.bands[r + 1])).all()
+            assert (flat[seg] == q).all()
+            segs.append(seg)
+        np.testing.assert_array_equal(np.sort(np.concatenate(segs)),
+                                      np.flatnonzero(flat == q))
+    assert lay.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("guess", ["zero", "warm"])
+def test_banded_cg_emulation_matches_congrad_ref_on_earth(dtype, guess,
+                                                          earth):
+    test_banded_cg_emulation_matches_congrad_ref(dtype, guess, earth)
+
+
+@pytest.mark.parametrize("guess", ["zero", "warm"])
+def test_congrad_ref_matches_jax_congrad_on_earth_grid(guess, earth):
+    test_congrad_ref_matches_jax_congrad_on_flagship_grid(guess, earth)

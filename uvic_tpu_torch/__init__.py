@@ -1,4 +1,6 @@
-"""uvic_tpu_torch — the PyTorch/CUDA port of the ``uvic_tpu`` ocean model.
+"""uvic_tpu_torch — the PyTorch/CUDA port of ``uvic_tpu``: the ocean model
+with its biogeochemistry and the coupled earth segment (EMBM atmosphere,
+sea ice, land).
 
 Same layout and names as ``uvic_tpu``; tensors are ``torch`` tensors on
 one explicit device.  The hot spots that ``uvic_tpu`` wrote as Pallas

@@ -1,7 +1,7 @@
 """Typed configuration tree of the PyTorch port.
 
-The ocean part of ``uvic_tpu.config`` with the same field names and
-defaults, so one set of options builds the same model in both packages.
+``uvic_tpu.config`` with the same field names and defaults, so one set
+of options builds the same model in both packages.
 The reference's compile-time CPP flags (``O_*``, run/mk.in) are static
 bools/enums and its namelist parameters plain floats/ints.  Options the
 port does not implement yet are rejected by ``OceanModel``.
@@ -173,6 +173,56 @@ class OceanConfig:
     aniso_zonal: bool = False
 
 
+# ---------------------------------------------------------------------------
+# atmosphere (EMBM)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class EmbmConfig:
+    enabled: bool = True                       # O_embm
+    dtatm: float = 54000.0                     # atm timestep [s]
+    namix: int = 10                            # steps between atm mixing steps
+    # transports are solved implicitly (BiCGSTAB on the 5-point operator)
+    solver_tol: float = 1.0e-10
+    solver_maxiter: int = 200
+    adiff: float = 0.03                        # anomaly diffusion factor (&embm)
+    rhmax: float = 0.85                        # max relative humidity before precip
+    awind: bool = False                        # O_embm_awind anomalous winds
+    seasonal: bool = False                     # seasonally varying insolation
+
+
+@dataclass(frozen=True)
+class IceConfig:
+    enabled: bool = True                       # O_ice
+    evp: bool = True                           # O_ice_evp dynamics
+    ndte: int = 30                             # EVP subcycles per dynamics step
+    niats: int = 1                             # advection substeps
+    cpts: int = 0                              # O_ice_cpts3/5/10 category count
+    nlay: int = 4                              # enthalpy layers per category
+    # advective-CFL cap on the ice velocity entering advection
+    # (|u| <= 0.4 dx/dtatm per cell); the EVP stress is computed from the
+    # unclamped velocities
+    cfl_cap: bool = True
+    # "draglaw": the ocean feels the quadratic ice-ocean drag over the
+    # ice-covered fraction; "freedrift": wind stress + the internal
+    # stress divergence (embm.F:188-201)
+    ice_ocn_stress: str = "draglaw"
+    ice_ocn_stress_cap: float = 5.0            # |xint| bound in freedrift mode
+
+
+@dataclass(frozen=True)
+class LandConfig:
+    enabled: bool = False                      # O_mtlm
+    segday: bool = True                        # O_mtlm_segday
+
+
+@dataclass(frozen=True)
+class SedConfig:
+    enabled: bool = False                      # O_sed
+    dtsed: float = 108000.0
+    porewater: bool = True
+
+
 @dataclass(frozen=True)
 class BgcConfig:
     """Biogeochemistry: none | npzd | mobi tracer suites."""
@@ -201,11 +251,45 @@ def mobi_full() -> "BgcConfig":
                      caco3=True, pa_th=True, cfc=True)
 
 
+# ---------------------------------------------------------------------------
+# run control / time management
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TimeConfig:
+    runlen_days: float = 3650.0                # control.in &contrl
+    segtim_days: float = 5.0                   # coupling segment [days]
+    init: bool = True                          # cold start vs restart
+    eqyear: bool = True                        # equal-month calendar
+    year0: int = 0
+    month0: int = 1
+    day0: int = 1
+    # output intervals [days] (&diagn)
+    tsiint: float = 10.0
+    timavgint: float = 3650.0
+    restint: float = 36500.0
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Device-mesh configuration (one card in the port)."""
+    mesh_shape: Tuple[int, int] = (1, 1)       # devices along (y, x)
+    axis_names: Tuple[str, str] = ("y", "x")
+    halo: int = 2
+    deterministic_reductions: bool = False
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     grid: GridConfig = field(default_factory=GridConfig)
     ocean: OceanConfig = field(default_factory=OceanConfig)
+    embm: EmbmConfig = field(default_factory=EmbmConfig)
+    ice: IceConfig = field(default_factory=IceConfig)
+    land: LandConfig = field(default_factory=LandConfig)
+    sed: SedConfig = field(default_factory=SedConfig)
     bgc: BgcConfig = field(default_factory=BgcConfig)
+    time: TimeConfig = field(default_factory=TimeConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     dtype: str = "float64"                     # "-r8" contract; f32 on the card
 
     @property
@@ -227,3 +311,20 @@ def small_config(imt: int = 34, jmt: int = 34, km: int = 8,
         z_res=(200.0e2, 200.0e2),
     )
     return ModelConfig(grid=g, **kw)
+
+
+def earth_config(dtype: str = "float32", accel: float = 1.0,
+                 **kw) -> ModelConfig:
+    """The flagship coupled real-Earth configuration: standard grid,
+    FCT + GM/Redi + tidal kv + geothermal + anisotropic viscosity,
+    seasonal EMBM, land model on.  ``accel`` > 1 enables the accel.h
+    deep tracer-timestep acceleration (spinup only)."""
+    cfg = ModelConfig(dtype=dtype, **kw)
+    return cfg.replace(
+        ocean=_replace(
+            cfg.ocean, isopycmix=True, gent_mcwilliams=True,
+            tidal_kv=True, gthflx=True, aniso_visc=True,
+            aniso_zonal=True, dtxcel_deep=float(accel),
+            athkdf=1.2e7, cdbot_polar_scale=20.0),
+        embm=_replace(cfg.embm, seasonal=True),
+        land=_replace(cfg.land, enabled=True))

@@ -1,8 +1,10 @@
-"""Carry an ocean state between ``uvic_tpu`` and the PyTorch port.
+"""Carry model state between ``uvic_tpu`` and the PyTorch port.
 
 The JAX package's ``OceanState`` goes in as a dict of NumPy arrays under
 its field names (``uvic_tpu/core/state.py``); the port's state comes
-back out the same way.  Parameters are not converted: the port builds
+back out the same way.  The coupled state goes both ways under the
+restart's keys ("ocean/t", "atm/nats", "land/frac", ...), the keys of
+``uvic_tpu.io.restart``.  Parameters are not converted: the port builds
 its own from the configuration.
 """
 
@@ -39,3 +41,26 @@ def ocean_state_to_numpy(state: OceanState) -> dict:
     out["itt"] = np.asarray(state.itt, np.int32)
     out["nconv"] = np.asarray(state.nconv.cpu(), np.int32)
     return out
+
+
+def coupled_state_to_numpy(state) -> dict:
+    """Every field of a coupled state as NumPy under the restart keys;
+    the host counters as int32 arrays."""
+    from .coupler.driver import pack_state
+    out = {k: v.detach().cpu().numpy() for k, v in pack_state(state).items()}
+    out["ocean/itt"] = np.asarray(state.ocean.itt, np.int32)
+    out["atm/nats"] = np.asarray(state.atm.nats, np.int32)
+    return out
+
+
+def coupled_state_from_numpy(d, template):
+    """A coupled state shaped like ``template`` (its device, each
+    field's dtype) from NumPy arrays under the restart keys."""
+    from .coupler.driver import pack_state, unpack_state
+    ws = {k: torch.as_tensor(np.array(d[k]), dtype=v.dtype,
+                             device=v.device)
+          for k, v in pack_state(template).items()}
+    host = dict(itt=int(np.asarray(d["ocean/itt"])),
+                nats=int(np.asarray(d["atm/nats"])),
+                land=template.land is not None)
+    return unpack_state(ws, host)

@@ -94,6 +94,21 @@ def idealized_kmt(grid: Grid, kind: str = "world") -> np.ndarray:
     return kmt
 
 
+def kmt_from_depth(grid: Grid, depth_cm: np.ndarray,
+                   min_levels: int = 2) -> np.ndarray:
+    """Convert a T-cell depth field [cm] to kmt (topog.F behavior):
+    number of whole levels shallower than the depth; ocean columns get at
+    least ``min_levels`` levels; depths < half the first level are land."""
+    kmt = np.searchsorted(grid.zw, depth_cm, side="right").astype(np.int32)
+    shallow = depth_cm < 0.5 * grid.zw[0]
+    kmt = np.where(shallow, 0, np.maximum(kmt, min_levels))
+    kmt[0, :] = 0
+    kmt[-1, :] = 0
+    if grid.cyclic:
+        kmt = _cyclic_wrap(kmt)
+    return kmt
+
+
 def _label_land(kmt: np.ndarray, cyclic: bool):
     """8-connected land-mass labeling with cyclic-seam merging
     (isleperim.F `expand` flood fill equivalent)."""

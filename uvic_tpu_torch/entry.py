@@ -11,16 +11,24 @@ tracers): the initial condition is the same 2-tracer one, extended to 41
 by ``init_state`` with the registry's defaults.  ``small=True`` gives
 the light 34x40x8 configuration of the JAX entry (isopycnal/GM mixing
 off).
+
+``_earth`` builds the coupled production configuration,
+``CoupledModel(earth_config(), topo_kind="earth")`` (the model that
+``scripts/run_production.py --earth`` runs), and with a restart loads it
+and sets ``relyr`` from the ``restart_meta.json`` beside it, as that
+script does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 
 import numpy as np
 import torch
 
-from .config import ModelConfig, mobi_full, small_config
+from .config import ModelConfig, earth_config, mobi_full, small_config
 from .models.ocean.model import make_forcing, make_ocean
 
 
@@ -60,3 +68,24 @@ def _wind(m):
         return torch.as_tensor(x, dtype=m.dtype, device=m.device)
 
     return make_forcing(tn(smf), tn(stf))
+
+
+def _earth(restart=None, device=None, dtype="float32", cfg=None):
+    """(model, state) of the coupled earth configuration (``cfg``, by
+    default ``earth_config(dtype)``); from ``restart`` (an npz of
+    ``io.restart``) when given, with the model's ``relyr`` from the
+    ``restart_meta.json`` beside it."""
+    from .coupler.driver import CoupledModel
+    from .io.restart import load_restart
+    model = CoupledModel(cfg or earth_config(dtype=dtype),
+                         topo_kind="earth", device=device)
+    state = model.init_state()
+    if restart is not None:
+        state = load_restart(restart, state)
+        meta = os.path.join(os.path.dirname(restart), "restart_meta.json")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                relyr = json.load(f).get("relyr")
+            if relyr is not None:
+                model.relyr = relyr
+    return model, state

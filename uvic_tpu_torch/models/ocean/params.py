@@ -96,8 +96,12 @@ def build_ocean_params(cfg: ModelConfig, kmt: np.ndarray | None = None,
     grid = make_grid(cfg.grid)
     if kmt is None:
         if topo_kind == "earth":
-            raise NotImplementedError("the earth bathymetry is not ported")
-        kmt = idealized_kmt(grid, topo_kind)
+            # coarse real-Earth bathymetry authored in-repo
+            # (core/earth.py; topog.F data path analog)
+            from ...core.earth import earth_kmt
+            kmt = earth_kmt(grid)
+        else:
+            kmt = idealized_kmt(grid, topo_kind)
     topo = make_topography(grid, kmt)
     eos = fit_eos(grid.zt)
     return OceanParams(cfg=cfg, grid=grid, topo=topo, eos=eos)

@@ -156,3 +156,21 @@ def convct_full(ts, kmt, eos_c, eos_to, eos_so, dztxcl):
                                ts.shape[1:]).contiguous()
     mnorm = region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so, dztxcl)
     return apply_region_means(ts.contiguous(), mnorm.contiguous(), ocean)
+
+
+def convection_extent(ts, kmt, eos_c, eos_to, eos_so, dztxcl, dzt):
+    """Diagnostic: (depth_cm, nregions) of convective mixing per column
+    (mom_tavg.F O_save_convection rows).
+
+    depth_cm  : thickness of the surface-connected mixed region
+    nregions  : number of distinct stable regions above the bottom (a
+                fully stratified column returns its ocean level count)
+    """
+    km = ts.shape[1]
+    label = _stable_labels(ts, kmt, eos_c, eos_to, eos_so, dztxcl)
+    idx = torch.arange(km, device=ts.device).reshape(km, 1, 1)
+    ocean = idx < kmt[None]
+    in_surf = (label == 0) & ocean
+    depth = torch.sum(in_surf * dzt.reshape(km, 1, 1), dim=0)
+    nreg = torch.sum((label == idx) & ocean, dim=0)
+    return depth, nreg

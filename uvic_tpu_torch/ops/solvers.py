@@ -171,3 +171,70 @@ def congrad(cf, guess, forc, isl: IslandIndex, tol, max_iter: int,
         done = done or not safe
         betakm1 = betak
     return deflate(dpsi), k, est, done or trivially_done
+
+
+def bicgstab_safe(matvec, b, x0, M, tol, maxiter, check_every=None):
+    """Breakdown-guarded BiCGSTAB (van der Vorst 1992) for the EMBM
+    transport solves (``uvic_tpu.ops.solvers.bicgstab_safe``).
+
+    Every division is guarded, and once the residual is below
+    ``tol * |b|`` (or a division broke down) every iterate is frozen:
+    each further trip selects the old values.  So a loop that runs more
+    trips returns the same x bitwise, and the loop takes one of two
+    forms:
+
+    - ``check_every=n`` (eager): the host reads ``done`` after every n
+      trips and stops, one sync per n trips;
+    - ``check_every=None`` (capturable): ``maxiter`` trips, no host
+      read, so a CUDA graph can hold the whole solve.
+
+    Returns (x, trips) with trips a 0-d int32 tensor: the trips before
+    the iterate froze, as the reference's loop counts them.
+    """
+    tiny = 1e-30
+
+    def sdot(a, c):
+        return torch.sum(a * c)
+
+    def safe_div(n, d):
+        ok = torch.abs(d) > tiny
+        return torch.where(ok, n / torch.where(ok, d, 1.0), 0.0), ok
+
+    r0 = b - matvec(x0)
+    bnorm = torch.sqrt(sdot(b, b))
+    thresh = tol * torch.clamp(bnorm, min=tiny)
+    x, r, rhat, p = x0, r0, r0, r0
+    rho = sdot(r0, r0)
+    done = torch.sqrt(rho) <= thresh
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    for trip in range(maxiter):
+        if check_every is not None and trip % check_every == 0 \
+                and bool(done):
+            break
+        p_hat = M(p)
+        v = matvec(p_hat)
+        alpha, ok_a = safe_div(rho, sdot(rhat, v))
+        s = r - alpha * v
+        s_hat = M(s)
+        t = matvec(s_hat)
+        omega, ok_o = safe_div(sdot(t, s), sdot(t, t))
+        x_n = x + alpha * p_hat + omega * s_hat
+        r_n = s - omega * t
+        rho_new = sdot(rhat, r_n)
+        beta_f, ok_b = safe_div(rho_new * alpha, rho * omega)
+        p_n = r_n + beta_f * (p - omega * v)
+        now = (torch.sqrt(sdot(r_n, r_n)) <= thresh) \
+            | ~(ok_a & ok_o & ok_b)
+        if check_every == 1:
+            # ``done`` was read false before this trip: nothing to freeze
+            x, r, p, rho, done = x_n, r_n, p_n, rho_new, now
+            k = k + 1
+            continue
+        keep = done
+        x = torch.where(keep, x, x_n)
+        r = torch.where(keep, r, r_n)
+        p = torch.where(keep, p, p_n)
+        rho = torch.where(keep, rho, rho_new)
+        k = k + (~keep).to(torch.int32)
+        done = done | now
+    return x, k
