@@ -2,8 +2,10 @@
 """Drive the PyTorch port's flagship ocean steps and its coupled earth
 segment on one NVIDIA card.
 
-    python3 chip_smoke.py            # the whole check, below
-    python3 chip_smoke.py --times    # kernel times only, one JSON line
+    python3 chip_smoke.py                  # the whole check, below
+    python3 chip_smoke.py --times          # kernel times only, one JSON line
+    python3 chip_smoke.py --golden-years N # N earth years against the golden
+    python3 chip_smoke.py --golden-gaps TSI_CSV  # a run's tsi, by year
 
 Phases (each failure ends the run with a non-zero exit code):
 
@@ -71,11 +73,35 @@ Phases (each failure ends the run with a non-zero exit code):
    counters: ntspos of each kernel a segment) and the same segments
    replayed from CUDA graphs, one per stage type, equal bitwise (state
    and time means), with each graph's capture and instantiation seconds,
-   its nodes and its kernel launches; then one year replayed (EARTH_YEAR
-   segments, or as many as EARTH_YEAR_S allows), every second segment's
-   tsi row held against the golden stream's row of that day within
-   TOL_GOLDEN, nconv equal.
-7. torch.profiler, last (a session taken after an earlier one and ~1e5
+   its nodes and its kernel launches.  Then one year (EARTH_YEAR
+   segments) through the port's Run (``coupler/run.py``) with the
+   output intervals of the golden's run (EARTH_RUN_TIME), its graphs
+   dropped first so that its first segment captures them with the launch
+   counters from 0 (each graph must hold one launch of each kernel an
+   ocean step, ntspos a segment, every later segment replay the same
+   graphs, and the graphs' replays over the year times their captured
+   launches make ntspos a segment): every tsi row it writes held
+   against the golden stream's row of that day within TOL_GOLDEN, nconv
+   equal; tavg.nc read back through the port's read_var as one record at
+   the year's end holding TAVG_VARIABLES, every field finite; restart.npz
+   with the calendar (``__itt``, ``__days``); run_summary.json with the
+   drift; the segment time inside Run (median) beside the bare replay's.
+   Then a split run: a fresh Run resumed from the year's restart.npz
+   takes EARTH_SPLIT segments, the year's Run as many more: equal
+   bitwise, state and tsi rows.  Last, EARTH_BARE bare replayed segments
+   (``m.run``) timed beside the segments inside Run.
+7. Transient forcing and anomalous winds, each on its own earth model:
+   EARTH_TRANSIENT segments under a TransientForcing whose CO2 rises
+   steeply, with a volcanic drop, the sulphate scale above 0 and the ice
+   sheets crossing their 0.5 extent, eagerly and replayed: equal
+   bitwise (state and time means); the same graphs replayed under
+   constant forcing must move atm/at (the graphs read the forcing from
+   the workspace).  Then ``embm.awind`` with a climatology set from the
+   restart's SAT, perturbed: EARTH_AWIND segments eager and replayed,
+   equal bitwise, and one more of each under another climatology, equal
+   bitwise on the same graphs and different from the first.  Each
+   graph's capture and instantiation seconds are printed.
+8. torch.profiler, last (a session taken after an earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
@@ -89,9 +115,10 @@ The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
 counts on each path by the wrappers' counters: over the eager steps,
 and per replayed step type as captured in its graph, and a segment of
-the earth path, eager and replayed; `nt41` the phase 2 readings on the
-MOBI inputs, `earth` the phase 6 readings on the earth inputs) and the
-result line {"ok": true, "device": {...}}.
+the earth path, eager and replayed, and over the year through Run each
+graph's replays times the launches captured in it; `nt41`
+the phase 2 readings on the MOBI inputs, `earth` the phase 6 readings
+on the earth inputs) and the result line {"ok": true, "device": {...}}.
 
 With --times the script builds the flagship and the full-MOBI flagship
 and captures the kernels' inputs as in phase 2, then prints one JSON
@@ -101,11 +128,23 @@ counts; equal digests mean bitwise equal outputs.  It uses only entry
 points that every version of the port has, so a copy of this script run
 from another checkout's root times that checkout's kernels: the way two
 commits are compared on one card in one call.
+
+With --golden-years N the script builds the kernels and runs N years of
+the earth model from EARTH_RESTART through the port's Run (EARTH_RUN_TIME),
+holds every tsi row against the golden stream's and prints each
+column's largest relative gap by year against TOL_GOLDEN, the wall time
+and the simulated years a day, then one JSON line of the same; it exits
+1 when a column leaves its limit or nconv differs.  Its watchdog grows
+by GOLDEN_YEAR_S a year.  With --golden-gaps TSI_CSV it prints the same
+table for a tsi stream another run wrote from EARTH_RESTART (no card
+needed: the JAX package's ``scripts/run_production.py --earth
+--from-restart earth_accept/restart.npz`` in float32, for one).
 """
 
 import dataclasses
 import faulthandler
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -114,6 +153,7 @@ import time
 from pathlib import Path
 
 WATCHDOG_S = 600
+GOLDEN_YEAR_S = 75              # --golden-years: more watchdog a year
 N_STEPS = 20
 N_SCAN = 17                     # run_scan steps: nmix + 1, a mixing step
 N_WARM = 3
@@ -179,20 +219,41 @@ CONVECT_SHAPES = ((41, 19, 7, 13), (1, 1, 5, 7), (41, 1, 4, 9),
                   (8, 19, 5, 9), (9, 8, 3, 11), (1, 64, 6, 10),
                   (41, 64, 3, 7))
 CONVECT_SEED = 5
-# The coupled earth segment (phase 6): the restart it starts from (year
-# 1060, the first row of the golden tsi stream), the golden stream, the
-# segments run eagerly and replayed, the year replayed after them (or as
-# many segments of it as EARTH_YEAR_S allows), and each golden column's
-# limit, relative to the golden value: ~5x the largest gaps of the JAX
+# The coupled earth segment (phases 6 and 7): the restart it starts from
+# (year 1060, the first row of the golden tsi stream), the golden stream,
+# the segments run eagerly and replayed, the bare replays timed, the year
+# through Run, the segments of the split run, of the transient and of
+# the anomalous-wind checks, and each golden column's limit, relative
+# to the golden value: ~5x the largest gaps of the JAX
 # package in float32 on a CPU over the same year (a_sat 6.1e-4, a_shum
 # 4.2e-5, i_area 4.5e-3, i_vol 7.3e-4, o_ke 2.1e-5, o_psi_max 1.8e-4,
 # o_psi_min 2.2e-4, o_sbar 1.4e-11, o_sst 3.5e-5, o_tbar 1.1e-5), two
-# float32 machines' round-off; nconv must be equal.
+# float32 machines' round-off; nconv must be equal.  The limits hold for
+# the year the main path runs; over ten years the gaps of two float32
+# runs grow past some of them from the eighth or ninth year on, the JAX
+# package's own on a CPU too (--golden-years, --golden-gaps; PERF.md).
 EARTH_RESTART = "earth_accept/restart.npz"
 EARTH_GOLDEN = "golden/regression/tsi_10yr_earth_r5.csv"
 EARTH_SEGMENTS = 2
+EARTH_BARE = 8
 EARTH_YEAR = 72
-EARTH_YEAR_S = 180.0
+EARTH_SPLIT = 2
+EARTH_TRANSIENT = 4
+EARTH_AWIND = 2
+# the output intervals of the run that wrote the golden stream
+# (scripts/run_production.py's defaults) [days]
+EARTH_RUN_TIME = dict(tsiint=10.0, timavgint=360.0, restint=360.0)
+# the tavg stream's variables: the reference's run10/tavg.nc holds these,
+# the 49 time means of the earth segment and the 4 coordinates
+TAVG_VARIABLES = (
+    "adv_fb_temp", "adv_fe_temp", "adv_fn_temp", "aice", "convect_depth",
+    "convect_nreg", "cs", "depth", "dif_fb_temp", "dif_fe_temp",
+    "dif_fn_temp", "diff_cbt_eff", "evap", "hflx", "hice", "hsno",
+    "latitude", "longitude", "lying_snow", "m_soil", "nep", "olr", "precip",
+    "psi", "psno", "rho", "runoff", "salt", "sat", "sflx", "shum", "soilm",
+    "swr", "taux", "tauy", "temp", "tice", "time", "toa_sw", "tsoil", "u",
+    "uice", "upltnt", "uplwr", "upsens", "v", "veg_frac", "vetiso", "vice",
+    "vntiso", "w", "wbtiso", "wspd")
 TOL_GOLDEN = dict(a_sat=3e-3, a_shum=2e-4, i_area=2.5e-2, i_vol=4e-3,
                   o_ke=1e-4, o_psi_max=1e-3, o_psi_min=1e-3, o_sbar=1e-6,
                   o_sst=2e-4, o_tbar=1e-4)
@@ -203,6 +264,15 @@ KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
 
 def say(*args):
     print(*args, flush=True)
+
+
+def clocks_line():
+    """The card's SM clock, power draw and temperature (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def card_line():
@@ -997,11 +1067,10 @@ def earth_capture(m, state):
     its first ocean step, and the arguments each kernel wrapper receives
     in an ocean step from there, with the segment's forcing and the
     phase 2 noise added to T and S."""
-    import torch
     from uvic_tpu_torch.coupler.driver import FORCING_NAMES, pack_state
     from uvic_tpu_torch.models.ocean.model import make_forcing
     ws = pack_state(state)
-    ws["relyr"] = torch.tensor(m.relyr, dtype=m.dtype, device=m.device)
+    ws.update(m.segment_inputs())
     host = dict(itt=state.ocean.itt, nats=state.atm.nats,
                 land=state.land is not None)
     for name, flag in m.schedule(host):
@@ -1037,9 +1106,10 @@ def graph_nodes(graph):
     return int(n.value) if rc == 0 else None
 
 
-def golden_rows():
-    """{days: row} of the golden tsi stream, each row {column: value}."""
-    with open(EARTH_GOLDEN) as f:
+def tsi_rows(path):
+    """{days: row} of a tsi stream (the golden's or one a Run wrote), each
+    row {column: value}."""
+    with open(path) as f:
         header = f.readline().strip().split(",")
         rows = {}
         for line in f:
@@ -1048,19 +1118,67 @@ def golden_rows():
     return rows
 
 
-def earth_phase():
-    """Phase 6: the coupled earth segment on the card.  Returns the
-    kernel checks on earth inputs, the launch counts and the times."""
-    import torch
-    import uvic_tpu_torch.coupler.driver as drv
-    from uvic_tpu_torch.diag.tsi import TsiDiagnostics
+def golden_gaps(rows, golden):
+    """Each golden column's largest relative gap over ``rows`` as (gap,
+    days, value, golden value), and the days whose nconv differs."""
+    worst, nconv_off = {}, []
+    for days, row in rows.items():
+        ref = golden[days]
+        for col in TOL_GOLDEN:
+            gap = abs(row[col] - ref[col]) / abs(ref[col])
+            if gap > worst.get(col, (-1.0,))[0]:
+                worst[col] = (gap, days, row[col], ref[col])
+        if row["nconv"] != ref["nconv"]:
+            nconv_off.append(days)
+    return worst, nconv_off
+
+
+def earth_model(cfg=None):
+    """The earth model on the card from EARTH_RESTART with its relyr, the
+    Run's output intervals (EARTH_RUN_TIME) in its configuration."""
+    from uvic_tpu_torch.config import earth_config
     from uvic_tpu_torch.entry import _earth
+    cfg = cfg or earth_config()
+    cfg = cfg.replace(time=dataclasses.replace(cfg.time, **EARTH_RUN_TIME))
+    return _earth(EARTH_RESTART, cfg=cfg)
+
+
+def timed_run(m, run, state, nseg):
+    """``run.run(state, nseg=nseg)`` with the host clock read as each
+    segment's ``m.run`` starts: the segment times inside Run (the replay
+    and the loop's host work around it), and the graphs each segment
+    found."""
+    stamps, graphs = [], []
+    inner = m.run
+
+    def segment(state, n, eager=False):
+        stamps.append(time.perf_counter())
+        graphs.append(m._graphs)
+        return inner(state, n, eager)
+
+    m.run = segment
+    try:
+        state = run.run(state, nseg=nseg)
+    finally:
+        del m.run
+    seg_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return state, seg_ms, graphs
+
+
+def earth_phase():
+    """Phase 6: the coupled earth segment on the card, and a year of it
+    through the port's Run.  Returns the kernel checks on earth inputs,
+    the launch counts and the times."""
+    import tempfile
+
+    import torch
+    from uvic_tpu_torch.coupler.run import Run
     from uvic_tpu_torch.ops.cg_kernel import congrad_launch
     from uvic_tpu_torch.ops.convection import apply_region_means
     from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
     out = {}
     t0 = time.perf_counter()
-    m, start = _earth(EARTH_RESTART)
+    m, start = earth_model()
     relyr0 = m.relyr
     say(f"  built CoupledModel(earth_config(), topo_kind='earth') from "
         f"{EARTH_RESTART} in {time.perf_counter() - t0:.1f} s: "
@@ -1080,8 +1198,10 @@ def earth_phase():
     say(" congrad, earth (six islands)")
     out["cg"] = check_cg(m.ocean, seen)
 
-    counters = (fct_tracer_step, apply_region_means, congrad_launch)
-    for w in counters:
+    counters = {"fct_tracer_step": fct_tracer_step,
+                "apply_region_means": apply_region_means,
+                "congrad": congrad_launch}
+    for w in counters.values():
         w.launches = 0
     seg_ms, eager = [], start
     for _ in range(EARTH_SEGMENTS):
@@ -1091,10 +1211,7 @@ def earth_phase():
         torch.cuda.synchronize()
         seg_ms.append((time.perf_counter() - t1) * 1e3)
     eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
-    eager_counts = {"fct_tracer_step": fct_tracer_step.launches,
-                    "apply_region_means": apply_region_means.launches,
-                    "congrad": congrad_launch.launches}
-    per_seg = {k: c / EARTH_SEGMENTS for k, c in eager_counts.items()}
+    per_seg = {k: w.launches / EARTH_SEGMENTS for k, w in counters.items()}
     say(f"  {EARTH_SEGMENTS} eager segments: "
         f"{', '.join(f'{t:.1f}' for t in seg_ms)} ms; kernel launches a "
         f"segment {json.dumps(per_seg)}; BiCGSTAB trips (humidity, "
@@ -1111,7 +1228,6 @@ def earth_phase():
     replayed = m.run(start, EARTH_SEGMENTS)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
-    g = m._graphs
     diff, counters_equal = coupled_diff(replayed, eager)
     tavg_diff = max(float(torch.max(torch.abs(
         m.last_tavg[k].double() - eager_tavg[k].double())))
@@ -1123,74 +1239,385 @@ def earth_phase():
     if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
         raise AssertionError("earth: replayed segments differ from the "
                              "eager ones")
-    for key in g.graphs:
-        say(f"  graph {key[0]}{'' if key[1] is None else f' {key[1]}'}: "
-            f"capture {g.capture_s[key]:.2f} s, instantiation "
-            f"{g.instantiate_s[key]:.2f} s, {graph_nodes(g.graphs[key])} "
-            f"nodes, kernel launches captured {json.dumps(g.captured[key])}")
-    run_counts = {k: 0 for k in eager_counts}
+    say_segment_graphs(m._graphs)
+
+    say(f"  one year through the port's Run from {EARTH_RESTART} "
+        f"({EARTH_YEAR} segments; {json.dumps(EARTH_RUN_TIME)}), the graphs "
+        "captured again by its first segment, launch counters from 0")
+    import shutil
+    say(f"  card before the year: {clocks_line()} (clocks.sm, power.draw, "
+        "temperature.gpu)")
+    outdir = tempfile.mkdtemp(prefix="earth_run_")
+    m._graphs = None
+    for w in counters.values():
+        w.launches = 0
+    logs = []
+    m.relyr = relyr0
+    run = Run(m, outdir, log=logs.append)
+    run.tm.days = relyr0 * run.tm.yrlen
+    t1 = time.perf_counter()
+    state, run_ms, seen_graphs = timed_run(m, run, start, EARTH_YEAR)
+    torch.cuda.synchronize()
+    year_s = time.perf_counter() - t1
+    relyr_year = m.relyr
+    g = m._graphs
+    run_counts = {k: 0 for k in counters}
     nodes = 0
     for name, flag in m.schedule(dict(itt=start.ocean.itt,
                                       nats=start.atm.nats)):
         for k in run_counts:
             run_counts[k] += g.captured[(name, flag)][k]
         nodes += graph_nodes(g.graphs[(name, flag)]) or 0
-    say(f"  a replayed segment holds {nodes} graph nodes; kernel launches "
-        f"{json.dumps(run_counts)}")
+    captures = {k: w.launches for k, w in counters.items()}
+    # the year's kernel launches through the graphs: each graph's replays
+    # over the year times the launches captured in it
+    year_counts = {k: sum(n * g.captured[key][k]
+                          for key, n in g.replays.items())
+                   for k in counters}
+    say(f"  {EARTH_YEAR} segments in {year_s:.1f} s; segment time inside "
+        f"Run median {statistics.median(run_ms):.1f} ms (min "
+        f"{min(run_ms):.1f}, max {max(run_ms):.1f}, the first with the "
+        f"captures)")
+    say(f"  each segment inside Run, ms: "
+        f"{' '.join(str(round(x)) for x in run_ms)}")
+    say(f"  wrappers' launch counters over the year: {json.dumps(captures)} "
+        f"(the capture's warm-up segment and the captures); a replayed "
+        f"segment holds {nodes} graph nodes and the launches "
+        f"{json.dumps(run_counts)}; every segment after the first replayed "
+        f"the same graphs; graph replays over the year "
+        f"{json.dumps({f'{n} {f}': c for (n, f), c in g.replays.items()})}"
+        f", so the kernels' launches by replay {json.dumps(year_counts)}")
     for k, c in run_counts.items():
-        if c != m.ntspos:
-            raise AssertionError(f"earth replay: {k} launched {c} times a "
-                                 f"segment")
+        if (c != m.ntspos or captures[k] == 0
+                or year_counts[k] != m.ntspos * EARTH_YEAR):
+            raise AssertionError(f"earth Run: {k} launched {c} times a "
+                                 f"segment, {year_counts[k]} by replay and "
+                                 f"{captures[k]} by its counter over the "
+                                 "year")
+    if any(seen is not g for seen in seen_graphs[1:]):
+        raise AssertionError("earth Run: graphs captured again mid-year")
+    for line in logs:
+        if "drift" in line or "stab:" in line:
+            say("  Run log: " + line)
+    check_finite(state.ocean, "the earth year")
+    out.update(year=check_run_outputs(run, state, outdir, EARTH_YEAR))
 
-    say(f"  one year replayed from {EARTH_RESTART} ({EARTH_YEAR} segments "
-        f"or {EARTH_YEAR_S:.0f} s), each tsi row against {EARTH_GOLDEN}")
-    golden = golden_rows()
-    tsi = TsiDiagnostics(m.ocean, m.embm, deterministic=True)
+    check_split(m, run, state, outdir, relyr_year)
+    shutil.rmtree(outdir)
+    bare_ms = []
     m.relyr = relyr0
-    state, nseg, rows, worst = start, 0, 0, {}
-    rep_ms = []
-    days0 = relyr0 * 360.0
-    t1 = time.perf_counter()
-    while nseg < EARTH_YEAR and time.perf_counter() - t1 < EARTH_YEAR_S:
+    state = start
+    for _ in range(EARTH_BARE):
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        t1 = time.perf_counter()
         state = m.run(state, 1)
         torch.cuda.synchronize()
-        rep_ms.append((time.perf_counter() - t2) * 1e3)
-        nseg += 1
-        if nseg % 2:
-            continue
-        days = round(round(days0, 4) + 5.0 * nseg, 4)
-        ref = golden[days]
-        row = tsi.compute(state.ocean, state.atm, state.ice)
-        row["nconv"] = float(int(state.ocean.nconv))
-        rows += 1
-        for col, lim in TOL_GOLDEN.items():
-            gap = abs(row[col] - ref[col]) / abs(ref[col])
-            if gap > worst.get(col, (-1.0,))[0]:
-                worst[col] = (gap, days, row[col], ref[col])
-        if row["nconv"] != ref["nconv"]:
-            raise AssertionError(f"earth day {days}: nconv {row['nconv']} "
-                                 f"against {ref['nconv']}")
-    check_finite(state.ocean, "the earth year")
-    say(f"  {nseg} segments replayed in {time.perf_counter() - t1:.1f} s "
-        f"(median {statistics.median(rep_ms):.1f} ms a segment), {rows} "
-        f"tsi rows held against the golden's; nconv equal in each")
-    failed = []
+        bare_ms.append((time.perf_counter() - t1) * 1e3)
+    say(f"  {EARTH_BARE} bare replayed segments (m.run, the Run's graphs): "
+        f"{', '.join(f'{x:.1f}' for x in bare_ms)} ms, median "
+        f"{statistics.median(bare_ms):.1f} ms against "
+        f"{statistics.median(run_ms):.1f} ms inside Run; card after them: "
+        f"{clocks_line()}")
+    out.update(eager_ms=statistics.median(seg_ms),
+               replay_ms=statistics.median(bare_ms),
+               run_ms=statistics.median(run_ms), eager_counts=per_seg,
+               run_counts=run_counts, year_counts=year_counts,
+               graph_nodes=nodes, model=m, start=start)
+    return out
+
+
+def check_split(m, run, state, outdir, relyr):
+    """A fresh Run resumed from ``outdir``'s restart.npz takes EARTH_SPLIT
+    segments; ``run`` (which wrote it, ending at ``state`` with the
+    model's clock at ``relyr``) takes as many more: the same state and
+    tsi rows, bitwise."""
+    import shutil
+    import tempfile
+    from uvic_tpu_torch.coupler.run import Run
+    say(f"  split run: a fresh Run resumed from the year's restart.npz and "
+        f"{EARTH_SPLIT} segments, against {EARTH_SPLIT} more segments of "
+        "the continuous Run")
+    split_dir = tempfile.mkdtemp(prefix="earth_split_")
+    shutil.copy(os.path.join(outdir, "restart.npz"), split_dir)
+    run_b = Run(m, split_dir)
+    state_b = run_b.load(state)
+    if (run_b.tm.itt, run_b.tm.days) != (run.tm.itt, run.tm.days):
+        raise AssertionError("split run: the restart's calendar "
+                             f"{run_b.tm.itt, run_b.tm.days} against "
+                             f"{run.tm.itt, run.tm.days}")
+    state_b = run_b.run(state_b, nseg=EARTH_SPLIT)
+    m.relyr = relyr
+    state_a = run.run(state, nseg=EARTH_SPLIT)
+    diff, counters_equal = coupled_diff(state_a, state_b)
+    with open(os.path.join(outdir, "tsi.csv")) as f:
+        rows_a = f.read().splitlines()[-(EARTH_SPLIT // 2):]
+    with open(os.path.join(split_dir, "tsi.csv")) as f:
+        rows_b = f.read().splitlines()[1:]
+    say(f"  split against continuous: max |diff| {diff:.3e} in the state, "
+        f"tsi rows {rows_b} and {rows_a} (bitwise required)")
+    if diff != 0.0 or not counters_equal or rows_a != rows_b \
+            or len(rows_b) != EARTH_SPLIT // 2:
+        raise AssertionError("earth: the split run differs from the "
+                             "continuous one")
+    shutil.rmtree(split_dir)
+
+
+def say_segment_graphs(g):
+    """Each stage graph's capture and instantiation seconds, nodes and
+    captured kernel launches."""
+    for key in g.graphs:
+        say(f"  graph {key[0]}{'' if key[1] is None else f' {key[1]}'}: "
+            f"capture {g.capture_s[key]:.2f} s, instantiation "
+            f"{g.instantiate_s[key]:.2f} s, {graph_nodes(g.graphs[key])} "
+            f"nodes, kernel launches captured {json.dumps(g.captured[key])}")
+
+
+def check_run_outputs(run, state, outdir, nseg):
+    """The files a Run of ``nseg`` segments from EARTH_RESTART wrote: each
+    tsi row against the golden's of its day (TOL_GOLDEN, nconv equal),
+    the tavg stream (TAVG_VARIABLES, a record every timavgint days, every
+    field finite), the restart's calendar and the run summary's drift.
+    Returns the golden gaps."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from uvic_tpu_torch.io.netcdf import read_var
+    tcfg = run.m.cfg.time
+    rows = tsi_rows(os.path.join(outdir, "tsi.csv"))
+    worst, nconv_off = golden_gaps(rows, tsi_rows(EARTH_GOLDEN))
+    say(f"  {len(rows)} tsi rows held against {EARTH_GOLDEN}; nconv "
+        f"{'equal in each' if not nconv_off else f'differs at {nconv_off}'}")
+    failed = list(nconv_off)
     for col, lim in TOL_GOLDEN.items():
         gap, days, got, ref = worst[col]
         say(f"  {col}: largest relative gap {gap:.3e} (limit {lim:.0e}) at "
             f"day {days}: {got:.10e} against {ref:.10e}")
         if not gap <= lim:
             failed.append(col)
-    if failed:
-        raise AssertionError(f"earth: golden tsi columns out of limits: "
-                             f"{failed}")
-    out.update(eager_ms=statistics.median(seg_ms),
-               replay_ms=statistics.median(rep_ms), eager_counts=per_seg,
-               run_counts=run_counts, graph_nodes=nodes, model=m,
-               start=start, segments=nseg)
-    return out
+    nrows = int(nseg * tcfg.segtim_days // tcfg.tsiint)
+    if len(rows) != nrows or failed:
+        raise AssertionError(f"earth Run: {len(rows)} tsi rows, out of "
+                             f"limits: {failed}")
+
+    path = os.path.join(outdir, "tavg.nc")
+    f = netcdf_file(path, "r", mmap=False)
+    try:
+        names = sorted(f.variables)
+    finally:
+        f.close()
+    times = read_var(path, "time")
+    days0 = round(run.tm.days - nseg * tcfg.segtim_days, 4)
+    want = [days0 + tcfg.timavgint * (n + 1)
+            for n in range(int(nseg * tcfg.segtim_days // tcfg.timavgint))]
+    if names != sorted(TAVG_VARIABLES):
+        raise AssertionError(f"tavg.nc: variables {names} are not the "
+                             "reference's")
+    if len(times) != len(want) or np.abs(times - want).max() > 1e-3:
+        raise AssertionError(f"tavg.nc: records at {times}, not {want}")
+    for name in names:
+        v = read_var(path, name)
+        if not np.isfinite(v).all():
+            raise AssertionError(f"tavg.nc: non-finite {name}")
+    say(f"  tavg.nc: {len(names)} variables (the reference's), records at "
+        f"days {times.tolist()}, every field finite")
+    with np.load(os.path.join(outdir, "restart.npz")) as d:
+        cal = (int(d["__itt"]), float(d["__days"]))
+    if cal != (state.ocean.itt, run.tm.days):
+        raise AssertionError(f"restart.npz: calendar {cal}")
+    with open(os.path.join(outdir, "run_summary.json")) as f:
+        summary = json.load(f)
+    if "drift" not in summary:
+        raise AssertionError(f"run_summary.json: {summary}")
+    say(f"  restart.npz: __itt {cal[0]}, __days {cal[1]!r}; run_summary: "
+        f"{json.dumps(summary)}")
+    return worst
+
+
+def transient_phase():
+    """Phase 7: transient forcing and the anomalous-wind feedback on the
+    earth model; eager segments against replayed ones, bitwise."""
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.config import earth_config
+    from uvic_tpu_torch.io.forcing import TransientForcing
+    from uvic_tpu_torch.io.forcing import TransientSeries as S
+    from uvic_tpu_torch.models.embm.constants import SOLARCONST
+    m, start = earth_model()
+    relyr0 = m.relyr
+    y0 = m.year0 + relyr0
+    span = EARTH_TRANSIENT * m.cfg.time.segtim_days / 360.0
+    forced = TransientForcing(
+        co2=S(np.array([y0, y0 + span]), np.array([280.0, 1120.0])),
+        solar=S.constant(SOLARCONST),
+        volcanic=S(np.array([y0, y0 + span / 2, y0 + span]),
+                   np.array([0.0, 3.0e4, 0.0])),
+        c14=S.constant(0.0),
+        sulph=S(np.array([y0, y0 + span]), np.array([0.02, 0.05])),
+        landice=S(np.array([y0, y0 + span]), np.array([0.4, 1.0])))
+    constant = TransientForcing(
+        co2=S.constant(280.0), solar=S.constant(SOLARCONST),
+        volcanic=S.constant(0.0), c14=S.constant(0.0),
+        sulph=S.constant(0.02), landice=S.constant(0.4))
+    say(f"  transient forcing over {EARTH_TRANSIENT} segments from year "
+        f"{y0!r}: CO2 280 -> 1120 ppm, a volcanic drop of 3e4 erg/cm2/s, "
+        "sulphate scale 0.02 -> 0.05, ice sheets 0.4 -> 1.0")
+    m.set_transient_forcing(forced)
+    m.relyr = relyr0
+    eager = start
+    forcing_seen = []
+    for _ in range(EARTH_TRANSIENT):
+        eager = m.run(eager, 1, eager=True)
+        forcing_seen.append((m.co2ccn, float(m.anthro), m.solar_scale,
+                             float(m.landice[1].max())
+                             if m.landice is not None else 0.0))
+    eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
+    m.relyr = relyr0
+    t1 = time.perf_counter()
+    replayed = m.run(start, EARTH_TRANSIENT)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    g = m._graphs
+    diff, counters_equal = coupled_diff(replayed, eager)
+    tavg_diff = max(float(torch.max(torch.abs(
+        m.last_tavg[k].double() - eager_tavg[k].double())))
+        for k in eager_tavg)
+    say(f"  (co2, anthro, solar scale, ice-sheet extent) by segment: "
+        f"{forcing_seen}; workspace inputs {sorted(m.segment_inputs())}")
+    say(f"  replayed ({first_s:.1f} s with the captures) against eager: max "
+        f"|diff| {diff:.3e} in the state, {tavg_diff:.3e} in the time means "
+        "(bitwise required)")
+    if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
+        raise AssertionError("transient: replayed segments differ from the "
+                             "eager ones")
+    say_segment_graphs(g)
+    m.set_transient_forcing(constant)
+    m.relyr = relyr0
+    steady = m.run(start, EARTH_TRANSIENT)
+    moved = float(torch.max(torch.abs(steady.atm.at - replayed.atm.at)))
+    say(f"  the same graphs replayed under constant forcing: max |diff| of "
+        f"atm/at {moved:.4f} against the transient replay")
+    if m._graphs is not g or not moved > 0.0:
+        raise AssertionError("transient: the replay did not follow the "
+                             "forcing in the workspace")
+    check_finite(replayed.ocean, "the transient segments")
+    del m, g, eager, replayed, steady
+
+    cfg = earth_config()
+    cfg = cfg.replace(embm=dataclasses.replace(cfg.embm, awind=True))
+    m, start = earth_model(cfg)
+    relyr0 = m.relyr
+    sat = start.atm.at[0].cpu().numpy()
+    wave = np.sin(np.deg2rad(np.asarray(m.grid.xt)) * 3.0)[None, :]
+    clims = (sat - 1.0 + 0.5 * wave, sat - 0.5 - 0.5 * wave)
+    say(f"  anomalous winds (embm.awind) against the restart's SAT "
+        f"perturbed: {EARTH_AWIND} segments eager and replayed, then one "
+        "more of each under another climatology")
+    m.awind.set_climatology(clims[0])
+    m.relyr = relyr0
+    eager = m.run(start, EARTH_AWIND, eager=True)
+    m.relyr = relyr0
+    t1 = time.perf_counter()
+    first = m.run(start, 1)
+    replayed = m.run(first, EARTH_AWIND - 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    g = m._graphs
+    diff, counters_equal = coupled_diff(replayed, eager)
+    m.awind.set_climatology(clims[1])
+    m.relyr = relyr0
+    eager2 = m.run(start, 1, eager=True)
+    m.relyr = relyr0
+    replayed2 = m.run(start, 1)
+    diff2, counters_equal2 = coupled_diff(replayed2, eager2)
+    moved = float(torch.max(torch.abs(replayed2.atm.at - first.atm.at)))
+    say(f"  replayed ({first_s:.1f} s with the captures) against eager: max "
+        f"|diff| {diff:.3e}; under the second climatology {diff2:.3e} "
+        f"(bitwise required), same graphs {m._graphs is g}, atm/at moved "
+        f"{moved:.4f} against the first climatology's segment")
+    if diff != 0.0 or diff2 != 0.0 or not counters_equal \
+            or not counters_equal2 or m._graphs is not g or not moved > 0.0:
+        raise AssertionError("awind: replayed segments differ from the "
+                             "eager ones or ignore the climatology")
+    say_segment_graphs(g)
+    check_finite(replayed.ocean, "the awind segments")
+    del m, g
+    torch.cuda.empty_cache()
+
+
+def golden_years(nyears):
+    """--golden-years: ``nyears`` years from EARTH_RESTART through the
+    port's Run, every tsi row held against the golden stream; each
+    column's worst gap by year."""
+    import shutil
+    import tempfile
+
+    import torch
+    from uvic_tpu_torch.coupler.run import Run
+    from uvic_tpu_torch.cuda import LIBRARY
+    LIBRARY.get()
+    m, start = earth_model()
+    outdir = tempfile.mkdtemp(prefix="earth_golden_")
+    run = Run(m, outdir)
+    run.tm.days = m.relyr * run.tm.yrlen
+    days0 = round(run.tm.days, 4)
+    nseg = 72 * nyears
+    say(f"{nyears} years ({nseg} segments) through the port's Run from "
+        f"{EARTH_RESTART}, day {days0}")
+    t0 = time.perf_counter()
+    state, run_ms, _ = timed_run(m, run, start, nseg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_finite(state.ocean, "the golden years")
+    rows = tsi_rows(os.path.join(outdir, "tsi.csv"))
+    shutil.rmtree(outdir)
+    by_year, failed = gaps_by_year(rows, days0, nyears)
+    say(f"  {len(rows)} rows in {wall:.1f} s wall "
+        f"({nyears / (wall / 86400.0):.0f} simulated years a day); segment "
+        f"time inside Run median "
+        f"{statistics.median(run_ms):.1f} ms")
+    say(json.dumps({"golden_years": nyears, "rows": len(rows),
+                    "wall_s": wall, "run_ms_median": statistics.median(run_ms),
+                    "worst_by_year": by_year, "out_of_limits": failed}))
+    if len(rows) != nseg // 2 or failed:
+        say(f"golden run: {len(rows)} rows, out of limits {failed}")
+        return 1
+    return 0
+
+
+def gaps_by_year(rows, days0, nyears):
+    """Each golden column's largest relative gap in each year of tsi
+    ``rows`` from day ``days0``, printed against TOL_GOLDEN; returns the
+    table and the (year, column, gap) out of limits."""
+    golden = tsi_rows(EARTH_GOLDEN)
+    by_year, failed = [], []
+    for year in range(nyears):
+        lo, hi = days0 + 360.0 * year, days0 + 360.0 * (year + 1)
+        sel = {d: r for d, r in rows.items() if lo < d <= hi + 1e-3}
+        worst, nconv_off = golden_gaps(sel, golden)
+        gaps = {col: worst[col][0] for col in TOL_GOLDEN}
+        by_year.append(dict(year=year + 1, rows=len(sel), nconv_off=nconv_off,
+                            **gaps))
+        out = [col for col, lim in TOL_GOLDEN.items() if not gaps[col] <= lim]
+        failed += [(year + 1, col, gaps[col]) for col in out]
+        failed += [(year + 1, "nconv", d) for d in nconv_off]
+        say(f"  year {year + 1}: {len(sel)} rows; "
+            + ", ".join(f"{col} {gap:.2e}" for col, gap in gaps.items())
+            + ("" if not out else f"; OUT OF LIMITS: {out}"))
+    say(f"  limits: {json.dumps(TOL_GOLDEN)}")
+    return by_year, failed
+
+
+def golden_gaps_of(path):
+    """--golden-gaps: the per-year table of a tsi stream written from
+    EARTH_RESTART by any run (the JAX package's own float32 runs too):
+    no card needed."""
+    rows = tsi_rows(path)
+    days0 = round(min(rows) - 10.0, 4)
+    nyears = int(round((max(rows) - days0) / 360.0))
+    say(f"{path}: {len(rows)} rows from day {days0}, against {EARTH_GOLDEN}")
+    by_year, failed = gaps_by_year(rows, days0, nyears)
+    say(json.dumps({"tsi": path, "rows": len(rows), "worst_by_year": by_year,
+                    "out_of_limits": failed}))
+    return 0
 
 
 def earth_launches(m, state):
@@ -1218,6 +1645,8 @@ def earth_launches(m, state):
 
 
 def main(argv):
+    if len(argv) == 2 and argv[0] == "--golden-gaps":
+        return golden_gaps_of(argv[1])
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     card = card_line()
@@ -1229,6 +1658,14 @@ def main(argv):
         return 1
     if argv == ["--times"]:
         code = times_only()
+        faulthandler.cancel_dump_traceback_later()
+        return code
+    if len(argv) == 2 and argv[0] == "--golden-years" \
+            and argv[1].isdigit() and int(argv[1]) > 0:
+        faulthandler.dump_traceback_later(
+            WATCHDOG_S + GOLDEN_YEAR_S * int(argv[1]), exit=True)
+        code = golden_years(int(argv[1]))
+        say(card)
         faulthandler.cancel_dump_traceback_later()
         return code
     if argv:
@@ -1362,17 +1799,23 @@ def main(argv):
         f"{float(r41.t[idx['dic']].max()):.4f}, |psi| max "
         f"{float(r41.psi0.abs().max()):.4e}")
 
-    say("phase 6: the coupled earth segment from the year-1060 restart")
+    say("phase 6: the coupled earth segment from the year-1060 restart, "
+        "and a year of it through the port's Run")
     earth = earth_phase()
     for key in ("tracer", "convect", "cg"):
         earth[key].pop("per_call_fn", None)
     say(f"  earth segment: eager {earth['eager_ms']:.1f} ms, replayed "
-        f"{earth['replay_ms']:.1f} ms (medians)")
+        f"{earth['replay_ms']:.1f} ms, inside Run {earth['run_ms']:.1f} ms "
+        "(medians)")
+
+    say("phase 7: transient forcing and anomalous winds on the earth model, "
+        "eager against replayed")
+    transient_phase()
 
     # All profiler sessions come last: on the card, a torch.profiler
     # session taken after an earlier session and ~1e5 eager launches in
     # between recorded no device activity at all (PyTorch 2.11).
-    say("phase 7: torch.profiler counts")
+    say("phase 8: torch.profiler counts")
     checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
                ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
                ("nt=41", k_convect41))
@@ -1396,7 +1839,8 @@ def main(argv):
                    "nt41_eager": eager41[k],
                    "nt41_run_scan_per_step": captured41[k],
                    "earth_eager_per_segment": earth["eager_counts"][k],
-                   "earth_run_per_segment": earth["run_counts"][k]}
+                   "earth_run_per_segment": earth["run_counts"][k],
+                   "earth_run_year_by_replays": earth["year_counts"][k]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -1441,8 +1885,8 @@ def main(argv):
         f"({per_step41['leapfrog']} kernels); earth segment eager "
         f"{earth['eager_ms']:.1f} ms ({earth_dev['eager']} device "
         f"activities), replayed {earth['replay_ms']:.1f} ms "
-        f"({earth_dev['replayed']}; {earth['segments']} segments "
-        "against the golden tsi)")
+        f"({earth_dev['replayed']}), inside Run {earth['run_ms']:.1f} ms "
+        f"({EARTH_YEAR} segments against the golden tsi)")
     say(f"total {time.perf_counter() - t_start:.1f} s "
         f"(watchdog {WATCHDOG_S} s)")
     say(card)

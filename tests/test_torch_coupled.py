@@ -40,7 +40,7 @@ from uvic_tpu.io.restart import _flatten_state
 from uvic_tpu.io.restart import load_restart as j_load
 from uvic_tpu.io.restart import save_restart as j_save
 
-from uvic_tpu_torch.config import ModelConfig, earth_config, small_config
+from uvic_tpu_torch.config import ModelConfig, earth_config
 from uvic_tpu_torch.convert import coupled_state_to_numpy
 from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.diag.tsi import TsiDiagnostics, TsiWriter
@@ -225,8 +225,7 @@ def test_tsi_writer_rows(runs, tmp_path):
 
 
 @pytest.mark.parametrize("option", ["cpts", "no_ice", "no_evp", "freedrift",
-                                    "sed", "awind", "convect_brine", "bgc",
-                                    "transient"])
+                                    "sed", "convect_brine", "bgc"])
 def test_unported_options_raise(option):
     cfg = ModelConfig()
     changes = dict(
@@ -236,16 +235,10 @@ def test_unported_options_raise(option):
         freedrift=dict(ice=dataclasses.replace(cfg.ice,
                                                ice_ocn_stress="freedrift")),
         sed=dict(sed=dataclasses.replace(cfg.sed, enabled=True)),
-        awind=dict(embm=dataclasses.replace(cfg.embm, awind=True)),
         convect_brine=dict(ocean=dataclasses.replace(cfg.ocean,
                                                      convect_brine=True)),
         bgc=dict(bgc=dataclasses.replace(cfg.bgc, suite="npzd")),
     )
-    if option == "transient":
-        m = CoupledModel(small_config(imt=40, jmt=34, km=8), device="cpu")
-        with pytest.raises(NotImplementedError):
-            m.set_transient_forcing()
-        return
     with pytest.raises(NotImplementedError):
         CoupledModel(cfg.replace(**changes[option]), device="cpu")
 

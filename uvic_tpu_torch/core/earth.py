@@ -7,8 +7,9 @@ and the earth configuration authors them in-repo instead: continental
 outlines as lon/lat polygons rasterized onto the grid, a
 distance-to-coast shelf/slope bathymetry with the major ridges,
 connectivity repair, analytic wind stress, surface winds, atmospheric
-coalbedo and diffusivities, a Levitus-like initial hydrography and a
-coarse land elevation.  Every field equals the reference's bitwise.
+coalbedo and diffusivities, a Levitus-like initial hydrography, a
+coarse land elevation and the LGM ice-sheet footprint of the transient
+land-ice forcing.  Every field equals the reference's bitwise.
 """
 
 from __future__ import annotations
@@ -464,3 +465,41 @@ def earth_elevation(grid: Grid) -> np.ndarray:
         _point_in_poly(LON, LAT, GREENLAND), 2000.0, 0.0))
     elev = np.maximum(elev, np.where(LAT <= ANTARCTIC_LAT, 2400.0, 0.0))
     return elev * 100.0   # cm
+
+
+# LGM continental ice-sheet outlines (~21 ka footprint at 3-deg
+# fidelity): Laurentide+Cordilleran, Fennoscandian+Barents-Kara,
+# Patagonian; Greenland and Antarctica are ice in the modern albedo
+# profile already (icedata.F reads these from L_icefra data)
+LGM_ICE = [
+    [(215.0, 47.0), (240.0, 48.0), (262.0, 38.0), (283.0, 38.0),
+     (295.0, 45.0), (300.0, 60.0), (290.0, 72.0), (260.0, 74.0),
+     (230.0, 72.0), (212.0, 62.0)],                       # N America
+    [(348.0, 51.0), (10.0, 50.0), (35.0, 52.0), (62.0, 58.0),
+     (90.0, 68.0), (95.0, 77.0), (60.0, 80.0), (20.0, 75.0),
+     (352.0, 62.0)],                                      # Eurasia
+    [(287.0, -56.0), (290.0, -38.0), (293.5, -38.0), (293.0, -55.0)],
+]
+
+
+def landice_fields(grid: Grid, scale: float):
+    """(aicel, hicel): land-ice fraction (0/1) and ice-sheet surface
+    elevation anomaly [cm] at ice-sheet extent ``scale`` (0 = modern,
+    1 = LGM), following icedata.F's >=0.5 binarization of the
+    time-interpolated fraction and its hicel elevation addition
+    (applied as elev + hicel in fluxes.F:112,344).  The elevation grows
+    continuously from 0 at the 0.5 crossing to the full ~2.5 km domes
+    at scale 1, as icedata.F's time interpolation of gridded hicel
+    does."""
+    land = land_mask(grid)
+    lon = np.asarray(grid.xt) % 360.0
+    lat = np.asarray(grid.yt)
+    LON, LAT = np.meshgrid(lon, lat)
+    lgm = np.zeros(LON.shape, dtype=bool)
+    for poly in LGM_ICE:
+        lgm |= _point_in_poly(LON, LAT, poly)
+    lgm &= land
+    aicel = ((lgm.astype(float) * float(scale)) >= 0.5).astype(float)
+    ramp = min(max((float(scale) - 0.5) / 0.5, 0.0), 1.0)
+    hicel = aicel * 2500.0e2 * ramp
+    return aicel, hicel

@@ -28,10 +28,22 @@ host integers, as in ``OceanModel``: they pick each stage's type.
 counterpart of the reference's one jitted segment program.  Both give
 the same result bitwise.
 
+What changes from one segment to the next (the fractional year, the
+transient forcing's CO2, its radiative forcing and solar factor, the
+sulphate and land-ice fields, the anomalous-wind climatology) enters as
+workspace tensors written before each segment (``segment_inputs``, the
+reference's ``_segment_scalars``), never as a Python number read inside
+a stage, so a replayed stage takes its own segment's values.  The set
+of those tensors is the workspace's structure: with transient forcing
+the sulphate and land-ice fields are always present (zero where the
+reference has ``None``: the same values), and the anomalous-wind
+climatology is present once it is set.  ``run`` captures the graphs
+again when the structure changes.
+
 Not ported (``NotImplementedError`` at construction): ``cpts > 0``,
 the sea ice off or without EVP dynamics, the free-drift ice-ocean
-stress, sediments, ``embm.awind``, ``convect_brine``, a bgc suite other
-than ``none`` (the gas fluxes of ``gasbc``), and transient forcing.
+stress, sediments, ``convect_brine`` and a bgc suite other than
+``none`` (the gas fluxes of ``gasbc``).
 """
 
 from __future__ import annotations
@@ -44,14 +56,17 @@ import torch
 from torch.profiler import record_function
 
 from .. import resolve_device
+from ..checks import validate
 from ..config import ModelConfig
 from ..constants import EPSLN, OMEGA, RADIAN
 from ..core.state import OceanState
+from ..io.forcing import TransientForcing, sulphate_pattern
 from ..ops.stencil import DN, E, N
 from ..models.embm import constants as C
 from ..models.embm.insolation import daily_insolation
 from ..models.embm.model import AtmState, EmbmModel
 from ..models.embm.rivers import RiverModel
+from ..models.embm.winds import WindFeedback
 from ..models.ice.evp import COSTH, DRAGW_RHO, SINTH, evp_dynamics, evp_xymin
 from ..models.ice.thermo import (IceState, freezing_point, ice_advection,
                           ice_thermodynamics, init_ice_state)
@@ -97,7 +112,6 @@ def _check_supported(cfg: ModelConfig):
         "ice.evp": not cfg.ice.evp,
         "ice.ice_ocn_stress": cfg.ice.ice_ocn_stress != "draglaw",
         "sed.enabled": cfg.sed.enabled,
-        "embm.awind": cfg.embm.awind,
         "ocean.convect_brine": cfg.ocean.convect_brine,
         "bgc": cfg.bgc.suite != "none",
     }
@@ -112,6 +126,9 @@ class CoupledModel:
                  topo_kind: str = "world", kmt=None, device=None):
         cfg = cfg or ModelConfig()
         _check_supported(cfg)
+        # checks.F + chkcpl: fatal inconsistencies raise, the
+        # adjust-and-warn rules are kept for the caller and the logs
+        self.config_warnings = validate(cfg)
         self.cfg = cfg
         self.device = device = resolve_device(device)
         self._topo_kind = topo_kind
@@ -152,10 +169,26 @@ class CoupledModel:
         self.ntspos = max(1, round(seg_s / cfg.ocean.dtts))
 
         jmt, imt = grid.jmt, grid.imt
+        # the per-segment inputs on the host (segment_inputs puts them in
+        # the workspace); run() updates them from the transient forcing
         self.co2ccn = 280.0     # atmospheric CO2 [ppmv] (co2ccn)
         self.anthro = 0.0       # CO2 radiative forcing (co2forc)
+        self.cfcccn = None      # (cfc11 N,S, cfc12 N,S) [pptv]
+        self.dc14ccn = 0.0      # atmospheric Delta-14C [permil]
         self.solar_scale = 1.0  # transient (solar - volcanic)/solarconst
+        self.sulph = None       # sulphate coalbedo-reduction field
+        self.sealev = 0.0       # sea level rel. present [cm] (sealevdata)
+        self.landice = None     # (hicel, aicel) paleo ice sheets (icedata)
+        self._icesheet_scale = None
+        self._sulph_pattern = tn(sulphate_pattern(grid.yt, imt=imt))
         self.relyr = 0.0        # fractional year, advanced by run()
+        self.year0 = cfg.time.year0
+        self.transient = None   # set by set_transient_forcing()
+        self.awind = None       # the anomalous-wind feedback (winds.F)
+        if cfg.embm.awind:
+            self.awind = WindFeedback(
+                grid, grid.cst[:, None] * grid.dyt[:, None]
+                * grid.dxt[None, :], dt, device)
         self.tlat_rad2d = tn(np.deg2rad(np.broadcast_to(
             grid.yt[:, None], (jmt, imt))))
         f = 2.0 * OMEGA * np.sin(grid.yu / RADIAN)
@@ -238,9 +271,65 @@ class CoupledModel:
         return t0 * tmask
 
     def set_transient_forcing(self, transient=None):
-        raise NotImplementedError(
-            "transient forcing (io/forcing) is not ported to "
-            "uvic_tpu_torch yet")
+        """Enable transient forcing (co2data/solardata/... readers): from
+        the next segment on, ``run`` takes its values at each segment's
+        year."""
+        self.transient = transient or TransientForcing.default()
+
+    def _update_transient(self):
+        """The transient forcing at the coming segment's year, into the
+        host-side inputs (gasbc.F data calls)."""
+        f = self.transient.at(self.year0 + self.relyr)
+        self.co2ccn = f["co2ccn"]
+        self.anthro = 5.35e3 * np.log(self.co2ccn / 280.0)
+        self.dc14ccn = f["dc14ccn"]
+        self.solar_scale = f["solarconst"] / C.SOLARCONST
+        if "aggfor" in f:
+            # additional GHG forcing rides the CO2 longwave channel
+            # (aggdata.F application in fluxes.F anthro)
+            self.anthro = self.anthro + f["aggfor"]
+        if "sealev" in f:
+            self.sealev = f["sealev"]
+        if "icesheet" in f and f["icesheet"] != self._icesheet_scale:
+            # paleo continental ice sheets (icedata.F): the authored
+            # footprint at the new extent scale
+            self._icesheet_scale = f["icesheet"]
+            self.landice = None
+            if f["icesheet"] > 0.0:
+                from ..core.earth import landice_fields
+                ai, hi = landice_fields(self.grid, f["icesheet"])
+                self.landice = tuple(
+                    torch.as_tensor(x, dtype=self.dtype, device=self.device)
+                    for x in (hi, ai))
+        if "sulph_scale" in f:
+            self.sulph = (self._sulph_pattern * f["sulph_scale"]
+                          if f["sulph_scale"] > 0.0 else None)
+        if "cfc11ccnn" in f:
+            self.cfcccn = (f["cfc11ccnn"], f["cfc11ccns"],
+                           f["cfc12ccnn"], f["cfc12ccns"])
+
+    def segment_inputs(self) -> dict:
+        """The coming segment's inputs as workspace tensors (the
+        reference's ``_segment_scalars``).  Under transient forcing the
+        sulphate and land-ice fields are always present, zero where the
+        reference has ``None`` (sca - 0, elev + 0 and an empty ice
+        sheet: the same values); the anomalous-wind climatology is
+        present once it is set."""
+        def scalar(v):
+            return torch.tensor(float(v), dtype=self.dtype,
+                                device=self.device)
+
+        out = dict(relyr=scalar(self.relyr), co2ccn=scalar(self.co2ccn),
+                   anthro=scalar(self.anthro),
+                   solar_scale=scalar(self.solar_scale))
+        if self.transient is not None:
+            zero = torch.zeros_like(self._sulph_pattern)
+            out["sulph"] = zero if self.sulph is None else self.sulph
+            out["hicel"], out["aicel"] = ((zero, zero) if self.landice
+                                          is None else self.landice)
+        if self.awind is not None and self.awind.t_clim is not None:
+            out["awind_clim"] = self.awind.t_clim
+        return out
 
     # ------------------------------------------------------------------
     def gasbc(self, state: CoupledState):
@@ -253,21 +342,32 @@ class CoupledModel:
     # ------------------------------------------------------------------
     def _atm_ice_step_impl(self, atm: AtmState, ice: IceState, sst, frzpt,
                            uocn, vocn, anthro, solins=None, land_gc=None,
-                           *, mixing: bool):
+                           wind_pkg=None, sulph=None, landice=None, *,
+                           mixing: bool):
         """One atmosphere step with the sea ice inside (embm.F:39-95).
         solins: seasonal TOA insolation (else the annual mean); land_gc:
-        the land model's canopy conductance [cm/s] from its last step.
-        Returns (new atm, new ice, flux increments for the coupler)."""
+        the land model's canopy conductance [cm/s] from its last step;
+        wind_pkg: (winds, wspd, taux, tauy) of the anomalous-wind
+        feedback; sulph, landice: the transient sulphate field and the
+        (hicel, aicel) ice sheets.  Returns (new atm, new ice, flux
+        increments for the coupler)."""
         embm = self.embm
         cfg = self.cfg.embm
         dts = cfg.dtatm if mixing else 2.0 * cfg.dtatm
         at_old = atm.at if mixing else atm.atm1
-        winds_a, wspd_a = embm.winds, embm.wspd
-        taux_w, tauy_w = self.taux_w, self.tauy_w
+        if wind_pkg is None:
+            winds_a, wspd_a = embm.winds, embm.wspd
+            taux_w, tauy_w = self.taux_w, self.tauy_w
+        else:
+            winds_a, wspd_a, taux_w, tauy_w = wind_pkg
         solins_a = embm.solins if solins is None else solins
+        hicel = aicel = None
+        if landice is not None:
+            hicel, aicel = landice
 
         fl = embm.fluxes(atm, sst, dts=dts, anthro=anthro, wspd=wspd_a,
-                         solins=solins_a, land_gc=land_gc)
+                         solins=solins_a, land_gc=land_gc, sulph=sulph,
+                         hicel=hicel, aicel=aicel)
 
         # ---- sea ice (ice.F): dynamics, advection, thermodynamics ----
         g = self.ocean.g
@@ -299,7 +399,7 @@ class CoupledModel:
             ice, atm.at[0], atm.at[1], fl["rh"], sst, frzpt, solins_a,
             embm.aca, wspd_a, embm.elev, embm.tmsk, fl["dnswr"],
             fl["uplwr"], fl["upsens"], fl["upltnt"], fl["evap"], dts,
-            float(self.grid.zw[0]))
+            float(self.grid.zw[0]), aicel=aicel)
         dnswr, uplwr = flx["dnswr"], flx["uplwr"]
         upsens, upltnt = flx["upsens"], flx["upltnt"]
         evap = flx["evap"]
@@ -311,7 +411,8 @@ class CoupledModel:
         shum = embm.solve_tracer(rhs_q, atm.at[1], coefs_q,
                                  embm.solver_tol, cfg.solver_maxiter)
         shum, precip, psno, rh, soilm_new, runoff = embm.precipitate(
-            shum, atm, evap * embm.lmsk, torch.ones_like(evap), dts)
+            shum, atm, evap * embm.lmsk, torch.ones_like(evap), dts,
+            hicel=hicel)
 
         # snowfall accumulates on sea ice / land snow (fluxes.F:363-420):
         # over the ocean only the ice-covered fraction holds snow
@@ -386,9 +487,10 @@ class CoupledModel:
 
     # ------------------------------------------------------------------
     # the segment's stages on the flat workspace
-    def _solins(self, relyr):
+    def _solins(self, relyr, solar_scale):
         """Seasonal insolation at the segment's midpoint (setembm /
-        zenith), or the annual mean."""
+        zenith), or the annual mean, scaled by the transient solar factor
+        (solardata.F / volcdata.F)."""
         if self.cfg.embm.seasonal:
             yrlen = 360.0 if self.cfg.time.eqyear else 365.0
             day = torch.remainder(relyr, 1.0) * yrlen \
@@ -396,16 +498,26 @@ class CoupledModel:
             solins = daily_insolation(self.tlat_rad2d, day, yrlen)
         else:
             solins = self.embm.solins
-        return solins * self.solar_scale
+        return solins * solar_scale
 
     def stage_head(self, ws, host):
         """gasbc, the surface ocean currents for the ice drag, the
-        insolation and the land's conductance; zeroed accumulators."""
+        insolation, the land's conductance and the anomalous winds;
+        zeroed accumulators."""
         state = unpack_state(ws, host)
         sst, _, frzpt = self.gasbc(state)
         u_surf = self.ocean.full_velocity(state.ocean.u, state.ocean.psi0)
         out = dict(sst=sst, frzpt=frzpt, uocn=u_surf[0, 0],
-                   vocn=u_surf[1, 0], solins=self._solins(ws["relyr"]))
+                   vocn=u_surf[1, 0],
+                   solins=self._solins(ws["relyr"], ws["solar_scale"]))
+        if "awind_clim" in ws:
+            # the SAT anomaly against the climatology perturbs the
+            # advecting winds, the stress and the wind speed (winds.F)
+            w2, tx2, ty2, ws2 = self.awind.apply(
+                state.atm.at[0], self.embm.winds, self.taux_w, self.tauy_w,
+                self.embm.wspd, t_clim=ws["awind_clim"])
+            out.update({"wind/winds": w2, "wind/wspd": ws2,
+                        "wind/taux": tx2, "wind/tauy": ty2})
         if state.land is not None:
             out["land_gc"] = state.land.gc * 100.0      # m/s -> cm/s
         z2 = torch.zeros_like(sst)
@@ -421,10 +533,15 @@ class CoupledModel:
         """One atmosphere/ice substep and its accumulation."""
         state = unpack_state(ws, host)
         self.embm.last_trips = []
+        wind_pkg = None
+        if "wind/winds" in ws:
+            wind_pkg = tuple(ws["wind/" + k]
+                             for k in ("winds", "wspd", "taux", "tauy"))
+        landice = (ws["hicel"], ws["aicel"]) if "hicel" in ws else None
         atm, ice, a = self._atm_ice_step_impl(
             state.atm, state.ice, ws["sst"], ws["frzpt"], ws["uocn"],
-            ws["vocn"], self.anthro, ws["solins"], ws.get("land_gc"),
-            mixing=mixing)
+            ws["vocn"], ws["anthro"], ws["solins"], ws.get("land_gc"),
+            wind_pkg, ws.get("sulph"), landice, mixing=mixing)
         out = {"acc/" + k: ws["acc/" + k] + a[k] for k in ACC_NAMES}
         tav = dict(sat=atm.at[0], shum=atm.at[1], hice=ice.hice,
                    aice=ice.aice, hsno=ice.hsno, soilm=atm.soilm,
@@ -460,7 +577,7 @@ class CoupledModel:
             seg_phys = self.cfg.time.segtim_days * 86400.0
             land, lflux = mtlm_physics_step(
                 land, self.embm.lmsk, atm.at[0], atm.at[1], swr_mean,
-                rh_mean, atm.soilm / 15.0, co2_ppm=self.co2ccn,
+                rh_mean, atm.soilm / 15.0, co2_ppm=ws["co2ccn"],
                 precip=acc["precip"] / acc["time"] * 10.0,
                 psno=acc["psno"] / acc["time"] * 10.0,
                 wspd=acc["wspd"] / acc["time"] * 0.01,
@@ -599,8 +716,7 @@ class CoupledModel:
         step and ``seg_trips`` the BiCGSTAB trips (humidity,
         temperature) of each atmosphere step."""
         ws = pack_state(state)
-        ws["relyr"] = torch.tensor(self.relyr, dtype=self.dtype,
-                                   device=self.device)
+        ws.update(self.segment_inputs())
         host = dict(itt=state.ocean.itt, nats=state.atm.nats,
                     land=state.land is not None)
         logs = dict(cg_iters=[], trips_q=[], trips_t=[])
@@ -615,21 +731,28 @@ class CoupledModel:
 
     def run(self, state: CoupledState, nseg: int,
             eager: bool = False) -> CoupledState:
-        """``nseg`` segments, ``relyr`` advancing by a segment each.  On
+        """``nseg`` segments, ``relyr`` advancing by a segment each, the
+        transient forcing (when set) taken at each segment's year.  On
         the card each stage is the replay of its captured CUDA graph
-        (``graphs.SegmentGraphs``, captured at the first call; a capture
-        that fails raises); on the CPU, or with ``eager``, the segments
-        run eagerly (``run_segment``)."""
+        (``graphs.SegmentGraphs``, captured at the first call and again
+        when the workspace's structure changes; a capture that fails
+        raises); on the CPU, or with ``eager``, the segments run eagerly
+        (``run_segment``)."""
         seg_days = self.cfg.time.segtim_days
         yrlen = 360.0 if self.cfg.time.eqyear else 365.0
         for _ in range(nseg):
+            if self.transient is not None:
+                self._update_transient()
             if eager or self.device.type == "cpu":
                 state = self.run_segment(state)
             else:
-                if self._graphs is None:
+                inputs = self.segment_inputs()
+                if self._graphs is None \
+                        or set(self._graphs.inputs) != set(inputs):
                     from .graphs import SegmentGraphs
-                    self._graphs = SegmentGraphs(self, state)
-                state = self._graphs.run(state)
+                    self._graphs = None     # free the old graphs first
+                    self._graphs = SegmentGraphs(self, state, inputs)
+                state = self._graphs.run(state, inputs)
             self.relyr += seg_days / yrlen
         return state
 

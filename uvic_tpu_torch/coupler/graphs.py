@@ -11,7 +11,10 @@ and the tail (the ocean's means), seven graphs, each replayed as the
 schedule says.
 
 Every graph reads and writes one set of static buffers, the segment's
-workspace (``driver.py``).  A stage's outputs are copied back into the
+workspace (``driver.py``), the segment's inputs among them
+(``CoupledModel.segment_inputs``: the fractional year, the transient
+forcing, the anomalous-wind climatology), copied in before each
+segment.  A stage's outputs are copied back into the
 buffers inside its graph, so replays chain.  Inside the graphs the
 EMBM's BiCGSTAB runs ``solver_maxiter`` trips with its freeze, where an
 eager segment stops on a host read of its convergence flag: the same
@@ -45,13 +48,16 @@ class SegmentGraphs:
     capture_s / instantiate_s : seconds each graph took, by stage type.
     captured : the launches each kernel wrapper made during each capture
     (its kernel nodes in that graph), by stage type.
+    replays : how many times each graph was replayed, by stage type.
+    inputs : the names of the segment inputs the graphs read.
     """
 
-    def __init__(self, model, state):
+    def __init__(self, model, state, inputs):
         from ..cuda import LIBRARY
         LIBRARY.get()                     # build/load before any capture
         self.model = model
         self.land = state.land is not None
+        self.inputs = tuple(inputs)
         embm = model.embm
         every = embm.check_every
 
@@ -63,8 +69,7 @@ class SegmentGraphs:
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             ws = {k: v.clone() for k, v in pack_state(state).items()}
-            ws["relyr"] = torch.zeros((), dtype=model.dtype,
-                                      device=model.device)
+            ws.update({k: v.clone() for k, v in inputs.items()})
             host = self._host(state)
             for name, flag in STAGE_TYPES:
                 embm.check_every = None
@@ -75,6 +80,7 @@ class SegmentGraphs:
 
         self.graphs, self.capture_s, self.instantiate_s = {}, {}, {}
         self.captured = {}
+        self.replays = dict.fromkeys(STAGE_TYPES, 0)
         try:
             embm.check_every = None
             for key in STAGE_TYPES:
@@ -117,17 +123,20 @@ class SegmentGraphs:
         for dst, src in pairs:
             dst.copy_(src)
 
-    def run(self, state):
-        """One segment from ``state`` by replays; the logs and means are
-        left on the model as ``run_segment`` leaves them."""
+    def run(self, state, inputs):
+        """One segment from ``state`` with the segment ``inputs`` by
+        replays; the logs and means are left on the model as
+        ``run_segment`` leaves them."""
         m = self.model
         for k, v in pack_state(state).items():
             self.ws[k].copy_(v)
-        self.ws["relyr"].fill_(m.relyr)
+        for k, v in inputs.items():
+            self.ws[k].copy_(v)
         host = self._host(state)
         logs = dict(cg_iters=[], trips_q=[], trips_t=[])
         for name, flag in m.schedule(host):
             self.graphs[(name, flag)].replay()
+            self.replays[(name, flag)] += 1
             if name == "ocean":
                 logs["cg_iters"].append(self.ws["cg_iters"].clone())
                 host["itt"] += 1

@@ -4,6 +4,7 @@ UVic_ESCM.F:1539-1593). CGS units."""
 CPATM = 1.004e7       # atmosphere specific heat [erg/g/K]
 SHT = 8.4e5           # temperature scale height [cm]
 SHQ = 1.8e5           # humidity scale height [cm]
+SHC = 8.049e5         # carbon scale height [cm]
 RHOATM = 1.250e-3     # air density [g/cm^3]
 ESATM = 4.6e-5        # atmosphere emissivity * stefan [g/s^3/K^4]
 CSSH = 3.8011e-3      # saturation-humidity constant [g/g]

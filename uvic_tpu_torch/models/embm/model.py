@@ -169,15 +169,20 @@ class EmbmModel:
 
     # ------------------------------------------------------------------
     def fluxes(self, state: AtmState, sst, dts=54000.0, anthro=0.0,
-               wspd=None, solins=None, land_gc=None):
+               wspd=None, solins=None, land_gc=None, sulph=None,
+               hicel=None, aicel=None):
         """Surface/TOA fluxes at tau (fluxes.F:2-278); sst (jmt, imt).
         ``anthro``: CO2 radiative forcing; ``wspd`` overrides the
         prescribed wind speed; ``land_gc``: the land model's canopy
         conductance [cm/s] for the land surface solve's stomatal
-        resistance (glsbc.F)."""
+        resistance (glsbc.F); ``sulph``: the sulphate coalbedo reduction
+        (fluxes.F:101 O_sulphate_data, sca - sulph); ``hicel``/``aicel``:
+        the continental ice sheets' elevation anomaly [cm] and 0/1 extent
+        (O_landice_data: elev + hicel in the lapse-rate terms, the
+        ice-sheet coalbedo on ice-covered land)."""
         at_sat = state.at[0]
         at_shum = state.at[1]
-        telev = self.elev
+        telev = self.elev if hicel is None else self.elev + hicel
         teff = at_sat - telev * C.RLAPSE * C.RF1 * torch.exp(
             torch.clamp(-telev / C.RF2, min=-1.0))
         tair = at_sat - telev * C.RLAPSE
@@ -187,7 +192,11 @@ class EmbmModel:
 
         if solins is None:
             solins = self.solins
-        dnswr = solins * self.aca * C.PASS * self.sca
+        sca = self.sca if sulph is None \
+            else torch.clamp(self.sca - sulph, min=0.0)
+        if aicel is not None:
+            sca = torch.where(aicel * self.lmsk > 0.5, 0.25, sca)
+        dnswr = solins * self.aca * C.PASS * sca
         if self.dry_soil_albedo > 0.0:
             # dry land is brighter: scales the land surface absorption by
             # the soil-moisture deficit
@@ -341,11 +350,12 @@ class EmbmModel:
         return torch.cat([z, a[..., 1:-1], z], dim=-1)
 
     # ------------------------------------------------------------------
-    def precipitate(self, at_shum, state, flux_shum, psno_allowed, dts):
+    def precipitate(self, at_shum, state, flux_shum, psno_allowed, dts,
+                    hicel=None):
         """Condensation above rhmax, snow/soil bookkeeping
         (fluxes.F:280-446).  Returns updated humidity and fields."""
         at_sat = state.at[0]
-        telev = self.elev
+        telev = self.elev if hicel is None else self.elev + hicel
         teff = at_sat - telev * C.RLAPSE * C.RF1 * torch.exp(
             torch.clamp(-telev / C.RF2, min=-1.0))
         ssh = C.CSSH * torch.exp(17.67 * teff / (teff + 243.5))

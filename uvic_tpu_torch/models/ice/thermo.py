@@ -66,7 +66,7 @@ def _qsat_ice(t):
 def ice_thermodynamics(ice: IceState, atm_sat, atm_shum, rh, sst, frzpt,
                        solins, aca, wspd, elev, tmsk,
                        dnswr, uplwr, upsens, upltnt, evap,
-                       dts, zw1):
+                       dts, zw1, aicel=None):
     """One thermodynamic ice step (therm.F).
 
     Inputs are the EMBM flux fields at tau (modified here for the
@@ -204,6 +204,10 @@ def ice_thermodynamics(ice: IceState, atm_sat, atm_shum, rh, sst, frzpt,
 
     # ---------------- land branch (snow on land, therm.F:110-245) ------
     as_l = torch.clamp(hsno2 / 1000.0, 0.0, 1.0)  # snow-masking fraction
+    if aicel is not None:
+        # continental ice sheets take full snow cover (therm.F:134 aice3
+        # = max(aice3, aicel)): their surface runs the snow branch
+        as_l = torch.maximum(as_l, torch.where(aicel > 0.5, 1.0, 0.0))
     fls = fe * C.DALT_I * wspd
     qair_l = rh * C.CSSH * torch.exp(17.67 * tair_l / (tair_l + 243.5))
 
