@@ -101,7 +101,27 @@ Phases (each failure ends the run with a non-zero exit code):
    equal bitwise, and one more of each under another climatology, equal
    bitwise on the same graphs and different from the first.  Each
    graph's capture and instantiation seconds are printed.
-8. torch.profiler, last (a session taken after an earlier one and ~1e5
+8. The earth carbon cycle: the earth model with ``mobi_full()`` (41
+   tracers), pore-water sediments and the default transient forcing from
+   year EARTH_BGC_YEAR0, from ``init_state()`` (the configuration of
+   ``golden/regression/bgc_earth_month.py``).  The stages up to the
+   first ocean step, then the three kernels held against their plain
+   versions on that step's inputs (phase 2's noise on T and S, phase 2's
+   tolerances), which must carry a non-zero surface flux in each of
+   EARTH_BGC_GAS (gas exchange) and a non-zero bottom flux in each of
+   EARTH_BGC_BOTTOM (the sediments); EARTH_BGC_SEGMENTS segments eagerly
+   (launch counters: ntspos of each kernel a segment) and the same
+   segments replayed, equal bitwise (state with the sediments, time
+   means with the surf_* rows), each graph's capture and instantiation
+   seconds, nodes and kernel launches.  Then EARTH_BGC_MONTH segments
+   through the port's Run (EARTH_BGC_RUN_TIME) on the same graphs: each
+   segment's row (``bgc_row``: each tracer's volume and surface mean, the
+   area integrals of its surface flux and of the dic and alk bottom
+   flux, the sediments' means, nconv) held against the JAX package's
+   float64 row of EARTH_BGC_GOLDEN within that file's tolerances, nconv
+   equal; ``tavg.nc`` with every surf_<tracer>, all finite;
+   ``restart.npz`` with 41 tracers and the sediments' seven fields.
+9. torch.profiler, last (a session taken after an earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
@@ -116,9 +136,11 @@ kernel (`launches` is phase 4's eager count; `launches_by_path` the
 counts on each path by the wrappers' counters: over the eager steps,
 and per replayed step type as captured in its graph, and a segment of
 the earth path, eager and replayed, and over the year through Run each
-graph's replays times the launches captured in it; `nt41`
-the phase 2 readings on the MOBI inputs, `earth` the phase 6 readings
-on the earth inputs) and the result line {"ok": true, "device": {...}}.
+graph's replays times the launches captured in it, and the same on the
+earth carbon-cycle path; `nt41` the phase 2 readings on the MOBI
+inputs, `earth` the phase 6 readings on the earth inputs, `earth_bgc`
+the phase 8 readings on the earth carbon cycle's inputs) and the result
+line {"ok": true, "device": {...}}.
 
 With --times the script builds the flagship and the full-MOBI flagship
 and captures the kernels' inputs as in phase 2, then prints one JSON
@@ -257,9 +279,111 @@ TAVG_VARIABLES = (
 TOL_GOLDEN = dict(a_sat=3e-3, a_shum=2e-4, i_area=2.5e-2, i_vol=4e-3,
                   o_ke=1e-4, o_psi_max=1e-3, o_psi_min=1e-3, o_sbar=1e-6,
                   o_sst=2e-4, o_tbar=1e-4)
+# The earth carbon cycle (phase 8): the configuration of
+# golden/regression/bgc_earth_month.py (earth_config() with mobi_full(),
+# 41 tracers, pore-water sediments, year0 EARTH_BGC_YEAR0 and
+# set_transient_forcing(), from init_state()), in float32; the segments
+# run eagerly and replayed, the month through Run (tsi every 5 days, the
+# time means and a restart at its end), the reference rows of that month
+# (float64, each quantity's tolerance 5x the JAX package's own
+# float32-float64 gap, at least 1e-6; written by the generator into the
+# JSON), the tracers whose surface flux and bottom flux the kernel checks
+# require non-zero.
+EARTH_BGC_YEAR0 = 1990
+EARTH_BGC_SEGMENTS = 2
+EARTH_BGC_MONTH = 6
+EARTH_BGC_RUN_TIME = dict(tsiint=5.0, timavgint=30.0, restint=30.0)
+EARTH_BGC_GOLDEN = "golden/regression/bgc_earth_month.json"
+EARTH_BGC_GAS = ("dic", "o2", "c14", "cfc11", "cfc12")
+EARTH_BGC_BOTTOM = ("dic", "alk")
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
+
+
+def bgc_weights(grid, tmask, area2d):
+    """(cell volumes of the ocean without the cyclic columns, the ocean
+    surface areas, the ocean cells) for ``bgc_row``, NumPy float64, from
+    either package's grid, T mask and ``CoupledModel.area2d``."""
+    import numpy as np
+    dvol = (np.asarray(grid.dzt)[:, None, None]
+            * np.asarray(grid.cst)[None, :, None]
+            * np.asarray(grid.dyt)[None, :, None]
+            * np.asarray(grid.dxt)[None, None, :]) * np.asarray(tmask)
+    dvol[:, :, 0] = 0.0
+    dvol[:, :, -1] = 0.0
+    area = np.asarray(area2d, np.float64)
+    return dvol, area, area > 0
+
+
+def bgc_row(weights, names, t, stf, btf, sed, nconv):
+    """One segment's row of the carbon-cycle month (NumPy float64): each
+    tracer's volume and surface mean (``vol/``, ``surf/``), the area
+    integral of its surface flux (``stf/``) and of the bottom flux of dic
+    and alk (``btf/``), each integral's scale, the integral of the flux's
+    magnitude (``stf_abs/``, ``btf_abs/``), the means of the sediments'
+    calgg, orggg (all levels) and zrct over the ocean cells (``sed/``),
+    and nconv."""
+    import numpy as np
+    dvol, area, wet = weights
+    t, stf, btf = (np.asarray(x, np.float64) for x in (t, stf, btf))
+    row = {"nconv": int(nconv)}
+    for n, name in enumerate(names):
+        row["vol/" + name] = float((t[n] * dvol).sum() / dvol.sum())
+        row["surf/" + name] = float((t[n, 0] * area).sum() / area.sum())
+        row["stf/" + name] = float((stf[n] * area).sum())
+        row["stf_abs/" + name] = float((np.abs(stf[n]) * area).sum())
+    for name in ("dic", "alk"):
+        n = names.index(name)
+        row["btf/" + name] = float((btf[n] * area).sum())
+        row["btf_abs/" + name] = float((np.abs(btf[n]) * area).sum())
+    for name in ("calgg", "orggg", "zrct"):
+        v = np.asarray(sed[name], np.float64)
+        row["sed/" + name] = float(v[..., wet].mean())
+    return row
+
+
+def port_bgc_row(m, weights, names, state):
+    """``bgc_row`` of a port model's state after a segment and of the
+    forcing that segment's ocean steps took."""
+    sed = {k: getattr(state.sed, k).double().cpu().numpy()
+           for k in ("calgg", "orggg", "zrct")}
+    return bgc_row(weights, names, state.ocean.t.double().cpu().numpy(),
+                   m.last_forcing["stf"].double().cpu().numpy(),
+                   m.last_forcing["btf"].double().cpu().numpy(), sed,
+                   state.ocean.nconv)
+
+
+def bgc_month_gaps(rows, golden):
+    """The quantity of each kind nearest its limit over ``rows`` against
+    the reference month ``golden`` (the JSON), as (gap / limit, gap, key,
+    segment, limit), and the (segment, key, gap, limit) out of limits,
+    nconv unequal among them."""
+    worst, failed = {}, []
+    for n, (row, ref) in enumerate(zip(rows, golden["rows"])):
+        if row["nconv"] != ref["nconv"]:
+            failed.append((n + 1, "nconv", row["nconv"], ref["nconv"]))
+        for key, lim in golden["tolerance"].items():
+            gap = bgc_gap(key, row[key], ref)
+            kind = key.split("/")[0]
+            if gap / lim > worst.get(kind, (-1.0,))[0]:
+                worst[kind] = (gap / lim, gap, key, n + 1, lim)
+            if not gap <= lim:
+                failed.append((n + 1, key, gap, lim))
+    if len(rows) != len(golden["rows"]):
+        failed.append((len(rows), "rows", len(rows), len(golden["rows"])))
+    return worst, failed
+
+
+def bgc_gap(key, got, ref_row):
+    """The gap of ``got`` against the reference row's value at ``key``:
+    relative to the value, for a flux integral relative to the integral
+    of the flux's magnitude, absolute where that scale is 0."""
+    kind, name = key.split("/")
+    scale = (ref_row[f"{kind}_abs/{name}"] if kind in ("stf", "btf")
+             else abs(ref_row[key]))
+    diff = abs(got - ref_row[key])
+    return diff / scale if scale > 0 else diff
 
 
 def say(*args):
@@ -444,6 +568,17 @@ def kernels_per_call(fn):
     if n < 1:
         raise AssertionError("torch.profiler recorded no device kernel")
     return n
+
+
+def say_kernel(label, k):
+    """One kernel check's times, bound and error on one line."""
+    lib = ("" if k["library_ms"] is None
+           else f", library {k['library_ms']:.4f} ms")
+    say(f"  {k['name']} {label}: {k['ms']:.4f} ms one call between "
+        f"events (device time {k['device_ms']:.4f} ms; plain "
+        f"{k['plain_ms']:.4f} ms{lib}; bound {k['bound_ms']:.4f} ms by "
+        f"{k['bound_by']}, {k['bytes']} bytes; max abs err "
+        f"{k['max_abs_err']:.3e})")
 
 
 def say_errors(errs, tol):
@@ -1067,18 +1202,249 @@ def earth_capture(m, state):
     its first ocean step, and the arguments each kernel wrapper receives
     in an ocean step from there, with the segment's forcing and the
     phase 2 noise added to T and S."""
-    from uvic_tpu_torch.coupler.driver import FORCING_NAMES, pack_state
+    from uvic_tpu_torch.coupler.driver import (FORCING_NAMES, host_of,
+                                               pack_state)
     from uvic_tpu_torch.models.ocean.model import make_forcing
+    if m.transient is not None:
+        m._update_transient()       # the segment's forcing, as run() does
     ws = pack_state(state)
     ws.update(m.segment_inputs())
-    host = dict(itt=state.ocean.itt, nats=state.atm.nats,
-                land=state.land is not None)
+    host = host_of(state)
     for name, flag in m.schedule(host):
         if name == "ocean":
             break
         ws.update(m.stage(name, flag, ws, host))
     forcing = make_forcing(**{k: ws["forcing/" + k] for k in FORCING_NAMES})
     return capture_step(m.ocean, perturbed(m.ocean, state.ocean), forcing)[1]
+
+
+def earth_bgc_model(device=None, dtype="float32"):
+    """The earth carbon-cycle model (on the card unless ``device`` says
+    otherwise) from its initial state, with the default transient
+    forcing."""
+    from uvic_tpu_torch.config import SedConfig, earth_config, mobi_full
+    from uvic_tpu_torch.coupler.driver import CoupledModel
+    cfg = earth_config(dtype=dtype)
+    cfg = cfg.replace(bgc=mobi_full(),
+                      sed=SedConfig(enabled=True, porewater=True),
+                      time=dataclasses.replace(cfg.time, year0=EARTH_BGC_YEAR0,
+                                               **EARTH_BGC_RUN_TIME))
+    m = CoupledModel(cfg, topo_kind="earth", device=device)
+    m.set_transient_forcing()
+    return m, m.init_state()
+
+
+def coupled_tavg_diff(m, ref):
+    """max |diff| between the model's last time means and ``ref``, and
+    whether their names agree."""
+    import torch
+    if set(m.last_tavg) != set(ref):
+        return float("inf")
+    return max(float(torch.max(torch.abs(m.last_tavg[k].double()
+                                         - ref[k].double())))
+               for k in ref)
+
+
+def earth_bgc_phase():
+    """Phase 8: the earth carbon cycle on the card.  The kernels on an
+    ocean step's inputs with the gas exchange and the sediments' bottom
+    flux in them, eager segments against replayed ones, a month inside
+    Run against the JAX package's float64 month.  Returns the kernel
+    checks, the launch counts and the times."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.coupler.run import Run
+    out = {}
+    t0 = time.perf_counter()
+    m, start = earth_bgc_model()
+    idx = m.ocean.tracer_index
+    names = [tr.name for tr in idx.tracers]
+    say(f"  built the earth model with mobi_full() ({m.ocean.nt} tracers), "
+        f"pore-water sediments, year0 {EARTH_BGC_YEAR0} and the default "
+        f"transient forcing in {time.perf_counter() - t0:.1f} s: "
+        f"{m.topo.nisle} islands; a segment is {m.ntspas} atmosphere and "
+        f"{m.ntspos} ocean steps")
+    if m.ocean.nt != 41 or m.topo.nisle != 6:
+        raise AssertionError(f"earth bgc: nt {m.ocean.nt}, "
+                             f"{m.topo.nisle} islands")
+
+    say(" kernels on the inputs of the first ocean step (the segment's "
+        "forcing with the gas exchange and the sediments, phase 2's noise "
+        "on T and S)")
+    seen = earth_capture(m, start)
+    args = seen["tracer"][0]
+    stf, btf, src = args[7], args[8], args[9]
+    nonzero = {f"stf {n}": int(torch.count_nonzero(stf[idx[n]]))
+               for n in EARTH_BGC_GAS}
+    nonzero.update({f"btf {n}": int(torch.count_nonzero(btf[idx[n]]))
+                    for n in EARTH_BGC_BOTTOM})
+    say(f"  cells with a non-zero flux: {json.dumps(nonzero)}; the tracer "
+        f"step's inputs: t {tuple(args[1].shape)}, stf "
+        f"{tuple(stf.shape)}, btf {tuple(btf.shape)}, a MOBI source "
+        f"{src is not None}")
+    if src is None or not all(nonzero.values()):
+        raise AssertionError("earth bgc: the ocean step's inputs lack the "
+                             "gas exchange, the bottom flux or the source")
+    say(" fct_tracer_step, earth bgc")
+    out["tracer"] = check_tracer(m.ocean, seen, "earth bgc tracer step")
+    say(" apply_region_means, earth bgc")
+    out["convect"] = check_convect(seen)
+    say(" congrad, earth bgc (six islands)")
+    out["cg"] = check_cg(m.ocean, seen)
+    del seen, args, stf, btf, src
+
+    from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
+    counters = dict(KERNEL_WRAPPERS)
+    for w in counters.values():
+        w.launches = 0
+    relyr0 = m.relyr
+    eager_ms, eager = [], start
+    for _ in range(EARTH_BGC_SEGMENTS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager = m.run(eager, 1, eager=True)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+    eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
+    per_seg = {k: w.launches / EARTH_BGC_SEGMENTS
+               for k, w in counters.items()}
+    say(f"  {EARTH_BGC_SEGMENTS} eager segments: "
+        f"{', '.join(f'{t:.1f}' for t in eager_ms)} ms; kernel launches a "
+        f"segment {json.dumps(per_seg)}; CG iterations of the last "
+        f"{m.seg_cg_iters.tolist()}")
+    for k, c in per_seg.items():
+        if c != m.ntspos:
+            raise AssertionError(f"earth bgc eager: {k} launched {c} times "
+                                 f"a segment, not {m.ntspos}")
+    surf = sorted(k for k in eager_tavg if k.startswith("surf_"))
+    if surf != sorted("surf_" + n for n in names[2:]):
+        raise AssertionError(f"earth bgc: time means {surf}")
+
+    m.relyr = relyr0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first = m.run(start, 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    replay_ms = []
+    replayed = first
+    for _ in range(EARTH_BGC_SEGMENTS - 1):
+        t1 = time.perf_counter()
+        replayed = m.run(replayed, 1)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t1) * 1e3)
+    diff, counters_equal = coupled_diff(replayed, eager)
+    tavg_diff = coupled_tavg_diff(m, eager_tavg)
+    g = m._graphs
+    say(f"  the same {EARTH_BGC_SEGMENTS} segments replayed (the first "
+        f"{first_s:.1f} s with the captures, then "
+        f"{', '.join(f'{t:.1f}' for t in replay_ms)} ms): max |diff| "
+        f"against the eager ones {diff:.3e} in the state (sediments "
+        f"included), {tavg_diff:.3e} in the time means (surf_* included; "
+        f"bitwise required); workspace inputs {sorted(g.inputs)}")
+    if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
+        raise AssertionError("earth bgc: replayed segments differ from the "
+                             "eager ones")
+    say_segment_graphs(g)
+    run_counts = {k: 0 for k in counters}
+    nodes = {}
+    for name, flag in m.schedule(dict(itt=start.ocean.itt,
+                                      nats=start.atm.nats)):
+        for k in run_counts:
+            run_counts[k] += g.captured[(name, flag)][k]
+        key = name if flag is None else f"{name} {flag}"
+        nodes[key] = graph_nodes(g.graphs[(name, flag)])
+    say(f"  a replayed segment's launches {json.dumps(run_counts)}; graph "
+        f"nodes by stage {json.dumps(nodes)}")
+    for k, c in run_counts.items():
+        if c != m.ntspos:
+            raise AssertionError(f"earth bgc replayed: {k} launched {c} "
+                                 f"times a segment, not {m.ntspos}")
+
+    with open(EARTH_BGC_GOLDEN) as f:
+        golden = json.load(f)
+    say(f"  a month inside the port's Run ({EARTH_BGC_MONTH} segments; "
+        f"{json.dumps(EARTH_BGC_RUN_TIME)}) on the same graphs, each "
+        f"segment's row held against {EARTH_BGC_GOLDEN} ({golden['command']}"
+        f"; {golden['tolerance_rule']})")
+    weights = bgc_weights(m.grid, m.ocean.tmask.cpu().numpy(),
+                          m.area2d.cpu().numpy())
+    rows, stamps = [], []
+    inner = m.run
+
+    def segment(state, n, eager=False):
+        stamps.append(time.perf_counter())
+        state = inner(state, n, eager)
+        rows.append(port_bgc_row(m, weights, names, state))
+        return state
+
+    replays0 = dict(g.replays)
+    m.relyr = relyr0
+    outdir = tempfile.mkdtemp(prefix="earth_bgc_run_")
+    run = Run(m, outdir)
+    m.run = segment
+    try:
+        t1 = time.perf_counter()
+        state = run.run(start, nseg=EARTH_BGC_MONTH)
+        torch.cuda.synchronize()
+        month_s = time.perf_counter() - t1
+    finally:
+        del m.run
+    stamps.append(time.perf_counter())
+    run_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    if m._graphs is not g:
+        raise AssertionError("earth bgc Run: graphs captured again")
+    month_counts = {k: sum((n - replays0[key]) * g.captured[key][k]
+                           for key, n in g.replays.items())
+                    for k in counters}
+    worst, failed = bgc_month_gaps(rows, golden)
+    say(f"  {month_s:.1f} s; segment time inside Run "
+        f"{', '.join(f'{t:.1f}' for t in run_ms)} ms (the row's reductions "
+        f"included); the kernels' launches by replay over the month "
+        f"{json.dumps(month_counts)}")
+    for kind, (frac, gap, key, n, lim) in sorted(worst.items()):
+        say(f"  {kind}: nearest its limit {key} (segment {n}): gap "
+            f"{gap:.3e} of {lim:.3e} ({frac:.2f})")
+    say(f"  nconv by segment {[r['nconv'] for r in rows]}; cfc11 (N, S) "
+        f"{m.cfcccn[0]:.2f} {m.cfcccn[1]:.2f} pptv")
+    if len(rows) != EARTH_BGC_MONTH or failed:
+        raise AssertionError(f"earth bgc month: out of limits {failed[:20]}")
+    if any(c != m.ntspos * EARTH_BGC_MONTH for c in month_counts.values()):
+        raise AssertionError(f"earth bgc month: launches {month_counts}")
+
+    from scipy.io import netcdf_file
+    f = netcdf_file(os.path.join(outdir, "tavg.nc"), "r", mmap=False)
+    try:
+        tavg = {k: np.array(v[:]) for k, v in f.variables.items()}
+    finally:
+        f.close()
+    want = {"surf_" + n for n in names[2:]}
+    bad = [k for k, v in tavg.items() if not np.isfinite(v).all()]
+    if not want <= set(tavg) or bad:
+        raise AssertionError(f"earth bgc tavg.nc: missing "
+                             f"{sorted(want - set(tavg))}, non-finite {bad}")
+    with np.load(os.path.join(outdir, "restart.npz")) as d:
+        nt_file = d["ocean/t"].shape[0]
+        sed_keys = sorted(k for k in d.files if k.startswith("sed/"))
+    if nt_file != 41 or len(sed_keys) != 7:
+        raise AssertionError(f"earth bgc restart.npz: ocean/t holds "
+                             f"{nt_file} tracers, sediments {sed_keys}")
+    say(f"  tavg.nc: {len(tavg)} variables, the {len(want)} surf_* among "
+        f"them, every one finite; restart.npz: ocean/t with {nt_file} "
+        f"tracers, {sed_keys}")
+    check_finite(state.ocean, "the earth bgc month")
+    shutil.rmtree(outdir)
+    out.update(eager_ms=statistics.median(eager_ms),
+               replay_ms=statistics.median(replay_ms),
+               run_ms=statistics.median(run_ms), eager_counts=per_seg,
+               run_counts=run_counts, month_counts=month_counts,
+               graph_nodes=nodes, capture_s=first_s)
+    del m, g, eager, replayed, first, state, run
+    torch.cuda.empty_cache()
+    return out
 
 
 def coupled_diff(a, b):
@@ -1229,9 +1595,7 @@ def earth_phase():
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t1
     diff, counters_equal = coupled_diff(replayed, eager)
-    tavg_diff = max(float(torch.max(torch.abs(
-        m.last_tavg[k].double() - eager_tavg[k].double())))
-        for k in eager_tavg)
+    tavg_diff = coupled_tavg_diff(m, eager_tavg)
     say(f"  the same {EARTH_SEGMENTS} segments replayed ({first_s:.1f} s "
         f"with the captures): max |diff| against the eager ones "
         f"{diff:.3e} in the state, {tavg_diff:.3e} in the time means "
@@ -1477,9 +1841,7 @@ def transient_phase():
     first_s = time.perf_counter() - t1
     g = m._graphs
     diff, counters_equal = coupled_diff(replayed, eager)
-    tavg_diff = max(float(torch.max(torch.abs(
-        m.last_tavg[k].double() - eager_tavg[k].double())))
-        for k in eager_tavg)
+    tavg_diff = coupled_tavg_diff(m, eager_tavg)
     say(f"  (co2, anthro, solar scale, ice-sheet extent) by segment: "
         f"{forcing_seen}; workspace inputs {sorted(m.segment_inputs())}")
     say(f"  replayed ({first_s:.1f} s with the captures) against eager: max "
@@ -1723,13 +2085,7 @@ def main(argv):
     for label, k in (("nt=2", k_tracer), ("nt=2", k_convect),
                      ("nt=2", k_cg), ("nt=2 non-isopycnal", k_plain_form),
                      ("nt=41", k_tracer41), ("nt=41", k_convect41)):
-        lib = ("" if k["library_ms"] is None
-               else f", library {k['library_ms']:.4f} ms")
-        say(f"  {k['name']} {label}: {k['ms']:.4f} ms one call between "
-            f"events (device time {k['device_ms']:.4f} ms; plain "
-            f"{k['plain_ms']:.4f} ms{lib}; bound {k['bound_ms']:.4f} ms by "
-            f"{k['bound_by']}, {k['bytes']} bytes; max abs err "
-            f"{k['max_abs_err']:.3e})")
+        say_kernel(label, k)
 
     say("phase 3: small-input reference, f32 card vs f64 CPU")
     small_reference()
@@ -1812,10 +2168,21 @@ def main(argv):
         "eager against replayed")
     transient_phase()
 
+    say("phase 8: the earth carbon cycle (MOBI gas exchange and virtual "
+        "fluxes, pore-water sediments) under transient forcing, and a month "
+        "of it through the port's Run")
+    bgc = earth_bgc_phase()
+    for key in ("tracer", "convect", "cg"):
+        bgc[key].pop("per_call_fn", None)
+        say_kernel("earth bgc", bgc[key])
+    say(f"  earth bgc segment: eager {bgc['eager_ms']:.1f} ms, replayed "
+        f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
+        "(medians)")
+
     # All profiler sessions come last: on the card, a torch.profiler
     # session taken after an earlier session and ~1e5 eager launches in
     # between recorded no device activity at all (PyTorch 2.11).
-    say("phase 8: torch.profiler counts")
+    say("phase 9: torch.profiler counts")
     checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
                ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
                ("nt=41", k_convect41))
@@ -1840,7 +2207,10 @@ def main(argv):
                    "nt41_run_scan_per_step": captured41[k],
                    "earth_eager_per_segment": earth["eager_counts"][k],
                    "earth_run_per_segment": earth["run_counts"][k],
-                   "earth_run_year_by_replays": earth["year_counts"][k]}
+                   "earth_run_year_by_replays": earth["year_counts"][k],
+                   "earth_bgc_eager_per_segment": bgc["eager_counts"][k],
+                   "earth_bgc_run_per_segment": bgc["run_counts"][k],
+                   "earth_bgc_month_by_replays": bgc["month_counts"][k]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -1878,6 +2248,14 @@ def main(argv):
             "bound_by", "library_ms")}
         if "iters" in ke:
             entry["earth"]["iters"] = ke["iters"]
+        kb = {"fct_tracer_step": bgc["tracer"],
+              "apply_region_means": bgc["convect"],
+              "congrad": bgc["cg"]}[k["name"]]
+        entry["earth_bgc"] = {key: kb[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        if "iters" in kb:
+            entry["earth_bgc"]["iters"] = kb["iters"]
         kernels.append(entry)
     say(f"steps: nt=2 eager {statistics.median(step_ms):.3f} ms, replayed "
         f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "
@@ -1886,7 +2264,10 @@ def main(argv):
         f"{earth['eager_ms']:.1f} ms ({earth_dev['eager']} device "
         f"activities), replayed {earth['replay_ms']:.1f} ms "
         f"({earth_dev['replayed']}), inside Run {earth['run_ms']:.1f} ms "
-        f"({EARTH_YEAR} segments against the golden tsi)")
+        f"({EARTH_YEAR} segments against the golden tsi); earth bgc "
+        f"segment eager {bgc['eager_ms']:.1f} ms, replayed "
+        f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
+        f"({EARTH_BGC_MONTH} segments against {EARTH_BGC_GOLDEN})")
     say(f"total {time.perf_counter() - t_start:.1f} s "
         f"(watchdog {WATCHDOG_S} s)")
     say(card)

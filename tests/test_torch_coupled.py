@@ -225,7 +225,7 @@ def test_tsi_writer_rows(runs, tmp_path):
 
 
 @pytest.mark.parametrize("option", ["cpts", "no_ice", "no_evp", "freedrift",
-                                    "sed", "convect_brine", "bgc"])
+                                    "convect_brine"])
 def test_unported_options_raise(option):
     cfg = ModelConfig()
     changes = dict(
@@ -234,10 +234,8 @@ def test_unported_options_raise(option):
         no_evp=dict(ice=dataclasses.replace(cfg.ice, evp=False)),
         freedrift=dict(ice=dataclasses.replace(cfg.ice,
                                                ice_ocn_stress="freedrift")),
-        sed=dict(sed=dataclasses.replace(cfg.sed, enabled=True)),
         convect_brine=dict(ocean=dataclasses.replace(cfg.ocean,
                                                      convect_brine=True)),
-        bgc=dict(bgc=dataclasses.replace(cfg.bgc, suite="npzd")),
     )
     with pytest.raises(NotImplementedError):
         CoupledModel(cfg.replace(**changes[option]), device="cpu")

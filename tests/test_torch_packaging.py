@@ -54,6 +54,9 @@ def test_wheel_holds_every_module_and_cuda_source(wheel):
                   list(PORT.rglob("*.py")) + list(PORT.glob("csrc/*.cu"))
                   if "_build" not in p.parts and "__pycache__" not in p.parts)
     assert "uvic_tpu_torch/csrc/convect_apply.cu" in want
+    assert {"uvic_tpu_torch/models/sed/__init__.py",
+            "uvic_tpu_torch/models/sed/porewater.py",
+            "uvic_tpu_torch/models/sed/sediment.py"} <= set(want)
     assert not sorted(set(want) - set(names))
 
 

@@ -404,11 +404,7 @@ def test_cli_runs_the_earth_configuration_on_the_cpu(tmp_path, capsys):
     assert "drift" in json.loads((tmp_path / "run_summary.json").read_text())
 
 
-def test_cli_refuses_bgc_and_needs_a_card_unless_asked(tmp_path,
-                                                      monkeypatch):
-    with pytest.raises(NotImplementedError):
-        run_production.main(["--bgc", "npzd", "--device", "cpu",
-                             "--outdir", str(tmp_path)])
+def test_cli_needs_a_card_unless_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_production.main(["--outdir", str(tmp_path)])

@@ -3,9 +3,9 @@
 The JAX package's ``OceanState`` goes in as a dict of NumPy arrays under
 its field names (``uvic_tpu/core/state.py``); the port's state comes
 back out the same way.  The coupled state goes both ways under the
-restart's keys ("ocean/t", "atm/nats", "land/frac", ...), the keys of
-``uvic_tpu.io.restart``.  Parameters are not converted: the port builds
-its own from the configuration.
+restart's keys ("ocean/t", "atm/nats", "land/frac", "sed/calgg", ...),
+the keys of ``uvic_tpu.io.restart``.  Parameters are not converted: the
+port builds its own from the configuration.
 """
 
 from __future__ import annotations
@@ -56,11 +56,10 @@ def coupled_state_to_numpy(state) -> dict:
 def coupled_state_from_numpy(d, template):
     """A coupled state shaped like ``template`` (its device, each
     field's dtype) from NumPy arrays under the restart keys."""
-    from .coupler.driver import pack_state, unpack_state
+    from .coupler.driver import host_of, pack_state, unpack_state
     ws = {k: torch.as_tensor(np.array(d[k]), dtype=v.dtype,
                              device=v.device)
           for k, v in pack_state(template).items()}
-    host = dict(itt=int(np.asarray(d["ocean/itt"])),
-                nats=int(np.asarray(d["atm/nats"])),
-                land=template.land is not None)
+    host = dict(host_of(template), itt=int(np.asarray(d["ocean/itt"])),
+                nats=int(np.asarray(d["atm/nats"])))
     return unpack_state(ws, host)

@@ -11,7 +11,11 @@ segment loop, gasbc.F, gosbc.F):
              precipitation -> temperature solve -> flux accumulation,
              embm.F:39-95)
     land   : MTLM physics and TRIFFID on the segment means
-    gosbc  : time-mean fluxes -> ocean surface forcing
+    sed    : the ocean sediments' step (sed.F), on the bottom water
+    gosbc  : time-mean fluxes -> ocean surface forcing; with a bgc suite
+             the gas exchange (gasbc.F:310-470) and the normalized
+             virtual fluxes (gosbc.F:312-364) of the tracers, and the
+             sediments' return flux at the bottom
     ntspos x ocean step, with the per-step time means
 
 A segment runs as a sequence of stages on a flat workspace: a dict of
@@ -30,20 +34,26 @@ the same result bitwise.
 
 What changes from one segment to the next (the fractional year, the
 transient forcing's CO2, its radiative forcing and solar factor, the
-sulphate and land-ice fields, the anomalous-wind climatology) enters as
-workspace tensors written before each segment (``segment_inputs``, the
-reference's ``_segment_scalars``), never as a Python number read inside
-a stage, so a replayed stage takes its own segment's values.  The set
-of those tensors is the workspace's structure: with transient forcing
-the sulphate and land-ice fields are always present (zero where the
-reference has ``None``: the same values), and the anomalous-wind
-climatology is present once it is set.  ``run`` captures the graphs
-again when the structure changes.
+atmospheric Delta-14C and CFCs, the sulphate and land-ice fields, the
+anomalous-wind climatology) enters as workspace tensors written before
+each segment (``segment_inputs``, the reference's ``_segment_scalars``),
+never as a Python number read inside a stage, so a replayed stage takes
+its own segment's values.  The set of those tensors is the workspace's
+structure: with transient forcing the sulphate and land-ice fields are
+always present (zero where the reference has ``None``: the same values);
+the CFC concentrations are present once the transient forcing has given
+them (a zero CFC atmosphere is not the reference's ``None``: it draws
+the CFCs out of the ocean), and the anomalous-wind climatology once it
+is set.  ``run`` captures the graphs again when the structure changes.
+
+The sediments (``sed.enabled``: the pore-water columns of
+``models/sed/porewater.py``, or the legacy interfacial closure of
+``models/sed/sediment.py``) are part of the state, in the workspace
+under the restart's keys (``sed/calgg``, ...).
 
 Not ported (``NotImplementedError`` at construction): ``cpts > 0``,
 the sea ice off or without EVP dynamics, the free-drift ice-ocean
-stress, sediments, ``convect_brine`` and a bgc suite other than
-``none`` (the gas fluxes of ``gasbc``).
+stress and ``convect_brine``.
 """
 
 from __future__ import annotations
@@ -70,12 +80,27 @@ from ..models.embm.winds import WindFeedback
 from ..models.ice.evp import COSTH, DRAGW_RHO, SINTH, evp_dynamics, evp_xymin
 from ..models.ice.thermo import (IceState, freezing_point, ice_advection,
                           ice_thermodynamics, init_ice_state)
+from ..models.bgc.gasx import (co2calc_sws, hemispheric_blend,
+                               surface_gas_fluxes)
 from ..models.land.mtlm import (LandState, init_land_state, mtlm_physics_step,
                          triffid_update)
+from ..models.sed.porewater import (PW_FIELDS, PoreWaterState,
+                                    init_porewater, porewater_step)
+from ..models.sed.sediment import (SED_FIELDS, SedState, init_sed_state,
+                                   sed_step)
 from ..models.ocean.kernels import adv_vel
 from ..models.ocean.model import eos_state_from, make_forcing, make_ocean
 
 SOCN = 0.035  # global-mean absolute salinity for virtual salt flux
+# The coupler's carbon chemistry (the gas exchange's carbonate system and
+# the sediments' step) runs in float64 whatever the model's dtype.  In
+# float32 the Mehrbach K2 fit of the pore water (terms of ~5e3 summing
+# to ~-9) and dco2star (the air-sea difference of near-equal numbers)
+# lose three to four digits: on the earth's bottom water K2 is 0.2% off,
+# and the port's float32 sediment return flux then sat ~10x further from
+# float64 than the JAX package's float32 does (PERF.md, PR 10).  These
+# are 2-D fields once a segment: the float64 costs no time.
+CHEM_DTYPE = torch.float64
 
 OCEAN_FIELDS = ("tm1", "t", "um1", "u", "psi0", "psi1", "ptd", "ptdb",
                 "ubar", "ubarm1", "nconv")
@@ -94,6 +119,9 @@ OTAV_NAMES = ("temp", "salt", "u", "v", "w", "rho", "adv_fe_temp",
               "dif_fb_temp", "psi")
 FORCING_NAMES = ("smf", "stf", "swr", "aice", "hice", "hsno", "relyr",
                  "btf")
+# the sediment state's class and fields by kind (host["sed"])
+SED_KINDS = {"porewater": (PoreWaterState, PW_FIELDS),
+             "legacy": (SedState, SED_FIELDS)}
 
 
 @dataclass
@@ -102,6 +130,29 @@ class CoupledState:
     atm: AtmState
     ice: IceState
     land: Any = None       # LandState when cfg.land.enabled
+    sed: Any = None        # PoreWaterState or SedState when cfg.sed.enabled
+
+
+def _chem(*xs):
+    """The arguments in CHEM_DTYPE (tensors; numbers pass as they are),
+    one or a tuple."""
+    out = tuple(x.to(CHEM_DTYPE) if isinstance(x, torch.Tensor) else x
+                for x in xs)
+    return out[0] if len(out) == 1 else out
+
+
+def sed_kind(sed):
+    """The key of SED_KINDS for a sediment state, None without one."""
+    if sed is None:
+        return None
+    return "porewater" if isinstance(sed, PoreWaterState) else "legacy"
+
+
+def host_of(state: CoupledState) -> dict:
+    """The host side of a segment: the counters and the optional
+    components present."""
+    return dict(itt=state.ocean.itt, nats=state.atm.nats,
+                land=state.land is not None, sed=sed_kind(state.sed))
 
 
 def _check_supported(cfg: ModelConfig):
@@ -111,9 +162,7 @@ def _check_supported(cfg: ModelConfig):
         "ice.enabled": not cfg.ice.enabled,
         "ice.evp": not cfg.ice.evp,
         "ice.ice_ocn_stress": cfg.ice.ice_ocn_stress != "draglaw",
-        "sed.enabled": cfg.sed.enabled,
         "ocean.convect_brine": cfg.ocean.convect_brine,
-        "bgc": cfg.bgc.suite != "none",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -189,8 +238,9 @@ class CoupledModel:
             self.awind = WindFeedback(
                 grid, grid.cst[:, None] * grid.dyt[:, None]
                 * grid.dxt[None, :], dt, device)
-        self.tlat_rad2d = tn(np.deg2rad(np.broadcast_to(
-            grid.yt[:, None], (jmt, imt))))
+        tlat = np.broadcast_to(grid.yt[:, None], (jmt, imt))
+        self.tlat_deg = tn(tlat)
+        self.tlat_rad2d = tn(np.deg2rad(tlat))
         f = 2.0 * OMEGA * np.sin(grid.yu / RADIAN)
         self.fcor_u = tn(np.broadcast_to(f[:, None], (jmt, imt)))
         self.umsk = tn((topo.kmu > 0).astype(np.float64))
@@ -198,6 +248,13 @@ class CoupledModel:
                      * grid.dxt[None, :])
         # land-cell areas [cm^2] for the global nep integral (gasbc.F)
         self.area2d_land = tn(area_full) * self.embm.lmsk
+        # ocean-cell areas without the cyclic columns, for the global
+        # surface means of the virtual fluxes (gosbc.F)
+        area = area_full * (topo.kmt > 0)
+        area[:, 0] = 0.0
+        area[:, -1] = 0.0
+        self.area2d = tn(area)
+        self._init_sediments()
 
         # river routing (rivmodel)
         self.rivers = RiverModel(topo.kmt, area_full, grid.cyclic,
@@ -231,9 +288,40 @@ class CoupledModel:
         self.xyminevp = evp_xymin(grid.cst, grid.dxt, grid.dyt)
 
         self.last_acc = None
+        self.last_forcing = None
         self.last_tavg = None
         self.last_nep_kgC_s = None
         self._graphs = None
+
+    def _init_sediments(self):
+        """The sediment step's fixed inputs, in CHEM_DTYPE: the bottom
+        cells, the ocean mask, the water depth and the particle sinking at
+        the bottom of the bgc suite (the reference's
+        ``jnp.take(mob.wc * mob.dzt, kb)``)."""
+        self._sed_on = (self.cfg.sed.enabled
+                        and "dic" in self.ocean.tracer_index)
+        if not self._sed_on:
+            return
+        dt, dev = CHEM_DTYPE, self.device
+        kb = torch.clamp(self.ocean.kmt.long() - 1, min=0)
+        self._sed_kb = kb
+        self._sed_tmsk = self.embm.tmsk.to(dt)
+        self._sed_depth = torch.as_tensor(np.asarray(self.topo.ht),
+                                          dtype=dt, device=dev)
+        idx = self.ocean.tracer_index
+        mob = self.ocean.npzd[True] if self.ocean.npzd else None
+        self._sed_wc = self._sed_wd = None
+        self._sed_redctn = getattr(mob, "redctn", 7.1e-3)
+
+        def sinking(w):
+            w = torch.as_tensor(np.asarray(w), dtype=dt, device=dev)
+            dzt = torch.as_tensor(np.asarray(mob.dzt), dtype=dt, device=dev)
+            return (w * dzt)[kb]
+
+        if mob is not None and "caco3" in idx:
+            self._sed_wc = sinking(mob.wc)
+        if mob is not None and "detr" in idx:
+            self._sed_wd = sinking(mob.wd)
 
     # ------------------------------------------------------------------
     def init_state(self, t_init=None) -> CoupledState:
@@ -247,7 +335,13 @@ class CoupledModel:
             land = init_land_state(grid.jmt, grid.imt,
                                    self.embm.lmsk.cpu().numpy(), self.dtype,
                                    self.device)
-        return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land)
+        sed = None
+        if self.cfg.sed.enabled:
+            init = (init_porewater if self.cfg.sed.porewater
+                    else init_sed_state)
+            sed = init(grid.jmt, grid.imt, self.dtype, self.device)
+        return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land,
+                            sed=sed)
 
     def _default_ocean_ic(self):
         g = self.grid
@@ -321,7 +415,13 @@ class CoupledModel:
 
         out = dict(relyr=scalar(self.relyr), co2ccn=scalar(self.co2ccn),
                    anthro=scalar(self.anthro),
-                   solar_scale=scalar(self.solar_scale))
+                   solar_scale=scalar(self.solar_scale),
+                   dc14ccn=scalar(self.dc14ccn))
+        if self.cfcccn is not None:
+            # (cfc11 N, cfc11 S, cfc12 N, cfc12 S) [pptv]
+            out["cfcccn"] = torch.tensor([float(v) for v in self.cfcccn],
+                                         dtype=self.dtype,
+                                         device=self.device)
         if self.transient is not None:
             zero = torch.zeros_like(self._sulph_pattern)
             out["sulph"] = zero if self.sulph is None else self.sulph
@@ -467,12 +567,22 @@ class CoupledModel:
         return new_atm, ice, acc
 
     # ------------------------------------------------------------------
-    def gosbc(self, acc, state: CoupledState, swr_mean, relyr=None):
+    def gosbc(self, acc, state: CoupledState, swr_mean, sed_flux=None,
+              relyr=None, co2ccn=None, cfcccn=None, dc14ccn=None):
         """Accumulated fluxes -> ocean forcing (gosbc.F:66-145): heat to
         cal/cm^2/s (~ K cm/s), freshwater to a virtual salt flux, wind
-        and ice stress to the momentum flux.  ``relyr`` defaults to the
-        host-side attribute."""
+        and ice stress to the momentum flux.  With bgc tracers, their gas
+        exchange on the segment-mean wind speed through the open water
+        (gasbc.F:310-470) and the normalized virtual fluxes
+        (gosbc.F:310-365).  ``sed_flux``: the sediments' dic and alk
+        fluxes [umol/cm^2/s, positive into the ocean] into the bottom
+        cells (tracer.F sed block).  ``relyr``, ``co2ccn``, ``cfcccn``
+        (four CFC concentrations) and ``dc14ccn`` default to the
+        host-side attributes; the stages pass workspace tensors."""
         relyr = self.relyr if relyr is None else relyr
+        co2ccn = self.co2ccn if co2ccn is None else co2ccn
+        cfcccn = self.cfcccn if cfcccn is None else cfcccn
+        dc14ccn = self.dc14ccn if dc14ccn is None else dc14ccn
         atatm = acc["time"]
         fh = 2.389e-8 / atatm          # erg/cm^2/s -> cal/cm^2/s ~ K cm/s
         fs = -SOCN / atatm             # freshwater -> virtual salt flux
@@ -480,10 +590,102 @@ class CoupledModel:
         hflx = fh * acc["heat"] * tmsk
         sflx = fs * acc["freshwater"] * tmsk
         smf = torch.stack([acc["taux"], acc["tauy"]]) / atatm / 1.035
+        idx = self.ocean.tracer_index
+        nt = self.ocean.nt
         stf = torch.stack([hflx, sflx])
+        if nt > 2:
+            sst, sss, _ = self.gasbc(state)
+            surf = state.ocean.t[:, 0]
+            ao = (1.0 - state.ice.aice) * tmsk
+            cfc_atm = None
+            if cfcccn is not None and "cfc11" in idx:
+                c11n, c11s, c12n, c12s = cfcccn
+                cfc_atm = (hemispheric_blend(self.tlat_deg, c11n, c11s),
+                           hemispheric_blend(self.tlat_deg, c12n, c12s))
+            gflux, _ = surface_gas_fluxes(
+                *_chem(sst, sss, acc["wspd"] / atatm, ao, surf), idx,
+                co2ccn=_chem(co2ccn),
+                cfc_atm=None if cfc_atm is None else _chem(*cfc_atm),
+                dc14ccn=_chem(dc14ccn))
+            gflux = gflux.to(stf.dtype)
+            # normalized virtual fluxes (gosbc.F:312-364): every bgc
+            # tracer follows the salt flux anomaly scaled by its global
+            # mean surface concentration
+            area = self.area2d
+            tsflx = torch.sum(sflx * area) / torch.sum(area)
+            vflux = (sflx - tsflx) / SOCN
+            gaost = torch.sum(surf * area[None], dim=(1, 2)) \
+                / torch.sum(area)
+            virt = gaost[:, None, None] * vflux[None]
+            virt[:2] = 0.0
+            stf = torch.cat([stf, torch.zeros_like(surf[2:])])
+            stf = (stf + gflux + virt) * tmsk[None]
+        btf = None
+        if sed_flux is not None:
+            # the kernel's sign: btf NEGATIVE = upward flux into the
+            # bottom cell (1 umol/cm^2/s == 1 (mol/m^3)(cm/s))
+            btf = torch.zeros_like(stf)
+            btf[idx.idic] = -sed_flux["dic"]
+            if "alk" in idx:
+                btf[idx.ialk] = -sed_flux["alk"]
         return make_forcing(smf, stf, swr=swr_mean, aice=state.ice.aice,
                             hice=state.ice.hice, hsno=state.ice.hsno,
-                            relyr=relyr)
+                            relyr=relyr, btf=btf)
+
+    def sediment_step(self, state: CoupledState, co2ccn):
+        """The sediments' step on the segment's bottom water (sed.F, once
+        a segment), before gosbc so that their return flux enters this
+        segment's bottom forcing (tracer.F sed block).  Returns (new
+        sediment state, its dic and alk fluxes into the bottom water
+        [umol/cm^2/s])."""
+        sed, sfl = self._sediment_step(state, _chem(co2ccn))
+        dt = self.dtype
+        cls, fields = SED_KINDS[sed_kind(sed)]
+        return (cls(**{f: getattr(sed, f).to(dt) for f in fields}),
+                {k: sfl[k].to(dt) for k in ("dic", "alk")})
+
+    def _sediment_step(self, state, co2ccn):
+        """sediment_step in CHEM_DTYPE."""
+        idx = self.ocean.tracer_index
+        t = state.ocean.t
+        kb = self._sed_kb
+        bt = _chem(torch.gather(t, 1, kb[None, None].expand(
+            t.shape[0], 1, -1, -1))[:, 0])
+        sss_b = bt[1] * 1000.0 + 35.0
+        seg_s = self.cfg.time.segtim_days * 86400.0
+        tmsk, depth = self._sed_tmsk, self._sed_depth
+        temp_b = torch.clamp(bt[0], -2, 35)
+        sal_b = torch.clamp(sss_b, 0, 45)
+        cls, fields = SED_KINDS[sed_kind(state.sed)]
+        sed = cls(**{f: _chem(getattr(state.sed, f)) for f in fields})
+        if isinstance(sed, PoreWaterState):
+            # Archer pore-water columns, coupled with the reference's
+            # burial correction (sed.F:283-300): the water column keeps
+            # the instant bottom redeposit of the particle rain (the
+            # suite's bottom source), and the sediments return the
+            # correction (dissolution + respiration - rain), normally
+            # negative (net burial), as a bottom dic/alk flux
+            z2 = torch.zeros_like(bt[0])
+            rain_cal = z2
+            rain_org = z2
+            if self._sed_wc is not None:
+                rain_cal = bt[idx["caco3"]] * self._sed_wc * 1.0e-9
+            if self._sed_wd is not None:
+                rain_org = bt[idx["detr"]] * self._sed_wd * 1.0e-6 \
+                    * self._sed_redctn
+            o2_bw = bt[idx.io2] * 1e-3 if "o2" in idx else z2 + 1.5e-4
+            alk_bw = bt[idx.ialk] * 1e-3 if "alk" in idx else 2.37e-3 + z2
+            sed, pw = porewater_step(
+                sed, temp_b, sal_b, alk_bw, bt[idx.idic] * 1e-3,
+                o2_bw, rain_cal, rain_org, depth * 1e-2, tmsk, seg_s)
+            per_s = 1.0e6 / 3.15e7    # mol/cm^2/yr -> umol/cm^2/s
+            corr_cal = (pw["ttrcal"] - rain_cal * 3.15e7) * per_s
+            corr_org = (pw["ttrorg"] - rain_org * 3.15e7) * per_s
+            return sed, dict(dic=(corr_cal + corr_org) * tmsk,
+                             alk=2.0 * corr_cal * tmsk)
+        alk = bt[idx.ialk] if "alk" in idx else 2.37 * torch.ones_like(bt[0])
+        carb = co2calc_sws(temp_b, sal_b, bt[idx.idic], alk, co2ccn)
+        return sed_step(sed, carb["co3"] * 1e-3, depth, tmsk, seg_s)
 
     # ------------------------------------------------------------------
     # the segment's stages on the flat workspace
@@ -593,13 +795,25 @@ class CoupledModel:
                         "tavg/nep": lflux["nep"]})
             out.update(pack_land(land))
 
-        forcing = self.gosbc(acc, state, swr_mean, relyr=ws["relyr"])
+        # ---- sediments (sed.F, once a segment) ------------------------
+        sfl = None
+        if self._sed_on:
+            sed, sfl = self.sediment_step(state, ws["co2ccn"])
+            state.sed = sed
+            out.update(pack_sed(sed))
+
+        forcing = self.gosbc(acc, state, swr_mean, sed_flux=sfl,
+                             relyr=ws["relyr"], co2ccn=ws["co2ccn"],
+                             cfcccn=ws.get("cfcccn"),
+                             dc14ccn=ws["dc14ccn"])
         out.update({"forcing/" + k: getattr(forcing, k)
                     for k in FORCING_NAMES})
         z3 = torch.zeros_like(state.ocean.t[0])
         for k in OTAV_NAMES:
             out["otav/" + k] = (torch.zeros_like(state.ocean.psi0)
                                 if k == "psi" else z3.clone())
+        if self.ocean.nt > 2:
+            out["otav/surf_tracers"] = torch.zeros_like(state.ocean.t[:, 0])
         return out
 
     def stage_ocean(self, ws, host, leapfrog):
@@ -627,6 +841,8 @@ class CoupledModel:
             * (tT - DN(tT)),
             psi=oc.psi0)
         out = {"otav/" + k: ws["otav/" + k] + v for k, v in tav.items()}
+        if om.nt > 2:
+            out["otav/surf_tracers"] = ws["otav/surf_tracers"] + oc.t[:, 0]
         out.update(pack_ocean(oc))
         out["cg_iters"] = om.last_cg_iters
         host["itt"] = oc.itt
@@ -641,6 +857,11 @@ class CoupledModel:
         out = {"tavg/" + k: ws["otav/" + k] / self.ntspos
                for k in OTAV_NAMES}
         out["tavg/salt"] = out["tavg/salt"] * 1000.0 + 35.0
+        if om.nt > 2:
+            # the bgc tracers' surface means (mom_tavg.F)
+            surf = ws["otav/surf_tracers"] / self.ntspos
+            for n, tr in enumerate(om.tracer_index.tracers[2:], start=2):
+                out["tavg/surf_" + tr.name] = surf[n]
         acc = {k: ws["acc/" + k] for k in ACC_NAMES}
         at = acc["time"]
         tmsk = self.embm.tmsk
@@ -700,6 +921,7 @@ class CoupledModel:
     # ------------------------------------------------------------------
     def _finish(self, ws, host, logs) -> CoupledState:
         self.last_acc = {k: ws["acc/" + k] for k in ACC_NAMES}
+        self.last_forcing = {k: ws["forcing/" + k] for k in FORCING_NAMES}
         self.last_tavg = {k[5:]: v for k, v in ws.items()
                           if k.startswith("tavg/")}
         self.last_nep_kgC_s = ws.get("nep")
@@ -712,13 +934,14 @@ class CoupledModel:
         """One coupled segment, its stages taken eagerly; the transport
         solves stop on a host read of their convergence flag.
         ``last_tavg`` holds the segment's time means, ``last_acc`` its
-        flux totals, ``seg_cg_iters`` the CG iterations of each ocean
+        flux totals, ``last_forcing`` its ocean forcing (``FORCING_NAMES``:
+        the surface and bottom tracer fluxes ``stf``, ``btf``, ...),
+        ``seg_cg_iters`` the CG iterations of each ocean
         step and ``seg_trips`` the BiCGSTAB trips (humidity,
         temperature) of each atmosphere step."""
         ws = pack_state(state)
         ws.update(self.segment_inputs())
-        host = dict(itt=state.ocean.itt, nats=state.atm.nats,
-                    land=state.land is not None)
+        host = host_of(state)
         logs = dict(cg_iters=[], trips_q=[], trips_t=[])
         for name, flag in self.schedule(host):
             ws.update(self.stage(name, flag, ws, host))
@@ -778,11 +1001,18 @@ def pack_land(la: LandState):
     return {"land/" + f: getattr(la, f) for f in LAND_FIELDS}
 
 
+def pack_sed(sed) -> dict:
+    _, fields = SED_KINDS[sed_kind(sed)]
+    return {"sed/" + f: getattr(sed, f) for f in fields}
+
+
 def pack_state(state: CoupledState) -> dict:
     ws = {**pack_ocean(state.ocean), **pack_atm(state.atm),
           **pack_ice(state.ice)}
     if state.land is not None:
         ws.update(pack_land(state.land))
+    if state.sed is not None:
+        ws.update(pack_sed(state.sed))
     return ws
 
 
@@ -795,5 +1025,9 @@ def unpack_state(ws, host) -> CoupledState:
     land = None
     if host["land"]:
         land = LandState(**{f: ws["land/" + f] for f in LAND_FIELDS})
-    return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land)
+    sed = None
+    if host.get("sed") is not None:
+        cls, fields = SED_KINDS[host["sed"]]
+        sed = cls(**{f: ws["sed/" + f] for f in fields})
+    return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land, sed=sed)
 

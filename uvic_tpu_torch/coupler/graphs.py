@@ -6,16 +6,16 @@ mixing flag and the ocean's leapfrog flag traced
 schedule (``nats``, ``itt``), so one graph is captured per stage type,
 as ``models/ocean/graphs.StepGraphs`` does for the ocean step: the
 segment head, an atmosphere/ice step (mixing and leapfrog), the middle
-(segment means, land update, gosbc), an ocean step (leapfrog and mixing)
-and the tail (the ocean's means), seven graphs, each replayed as the
-schedule says.
+(segment means, land update, sediments, gosbc), an ocean step (leapfrog
+and mixing) and the tail (the ocean's means), seven graphs, each
+replayed as the schedule says.
 
 Every graph reads and writes one set of static buffers, the segment's
 workspace (``driver.py``), the segment's inputs among them
 (``CoupledModel.segment_inputs``: the fractional year, the transient
-forcing, the anomalous-wind climatology), copied in before each
-segment.  A stage's outputs are copied back into the
-buffers inside its graph, so replays chain.  Inside the graphs the
+forcing with its Delta-14C and CFCs, the anomalous-wind climatology),
+copied in before each segment.  A stage's outputs are copied back into
+the buffers inside its graph, so replays chain.  Inside the graphs the
 EMBM's BiCGSTAB runs ``solver_maxiter`` trips with its freeze, where an
 eager segment stops on a host read of its convergence flag: the same
 iterate, bitwise.  ``run`` copies the caller's state in and returns
@@ -33,7 +33,7 @@ import torch
 from ..ops.cg_kernel import congrad_launch
 from ..ops.convection import apply_region_means
 from ..ops.tracer_kernel import fct_tracer_step
-from .driver import pack_state
+from .driver import host_of, pack_state
 
 KERNEL_WRAPPERS = {"fct_tracer_step": fct_tracer_step,
                    "apply_region_means": apply_region_means,
@@ -56,7 +56,6 @@ class SegmentGraphs:
         from ..cuda import LIBRARY
         LIBRARY.get()                     # build/load before any capture
         self.model = model
-        self.land = state.land is not None
         self.inputs = tuple(inputs)
         embm = model.embm
         every = embm.check_every
@@ -70,7 +69,7 @@ class SegmentGraphs:
         with torch.cuda.stream(side):
             ws = {k: v.clone() for k, v in pack_state(state).items()}
             ws.update({k: v.clone() for k, v in inputs.items()})
-            host = self._host(state)
+            host = host_of(state)
             for name, flag in STAGE_TYPES:
                 embm.check_every = None
                 ws.update(model.stage(name, flag, ws, dict(host)))
@@ -102,10 +101,6 @@ class SegmentGraphs:
         finally:
             embm.check_every = every
 
-    def _host(self, state):
-        return dict(itt=state.ocean.itt, nats=state.atm.nats,
-                    land=self.land)
-
     def _write_back(self, out):
         """Copy a stage's outputs into the workspace buffers.  An output
         that shares storage with a buffer (atm1 <- at, a view of t, ...)
@@ -132,7 +127,7 @@ class SegmentGraphs:
             self.ws[k].copy_(v)
         for k, v in inputs.items():
             self.ws[k].copy_(v)
-        host = self._host(state)
+        host = host_of(state)
         logs = dict(cg_iters=[], trips_q=[], trips_t=[])
         for name, flag in m.schedule(host):
             self.graphs[(name, flag)].replay()

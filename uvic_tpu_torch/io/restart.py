@@ -2,13 +2,14 @@
 
 Port of ``uvic_tpu.io.restart``: a compressed ``.npz`` with one array
 per state field under the same keys (``ocean/t``, ``atm/at``,
-``atm/nats``, ``ice/sig``, ``land/frac``, ``land/nacc``, ...), both
-leapfrog time levels included, so that each package reads the other's
-files and a split run reproduces a continuous one.  The counters
-(``ocean/itt``, ``atm/nats``) are int32 arrays in the file and host
-integers in the port.  With a ``TimeManager`` the file also carries the
-calendar (``__itt``, ``__days``), as the reference's does, so that a
-``Run`` of either package resumes the other's with the same clock.
+``atm/nats``, ``ice/sig``, ``land/frac``, ``land/nacc``, ``sed/calgg``,
+``sed/carb``, ...), both leapfrog time levels included, so that each
+package reads the other's files and a split run reproduces a continuous
+one.  The counters (``ocean/itt``, ``atm/nats``) are int32 arrays in the
+file and host integers in the port.  With a ``TimeManager`` the file
+also carries the calendar (``__itt``, ``__days``), as the reference's
+does, so that a ``Run`` of either package resumes the other's with the
+same clock.
 """
 
 from __future__ import annotations
@@ -34,11 +35,19 @@ def load_restart(path: str, template, time_manager=None):
     """Read a restart into a state shaped like ``template``, on its
     device and in its dtype (values restore bit-for-bit in the stored
     precision).  A field the file lacks keeps the template's value, with
-    a warning.  The calendar entries (``__itt``, ``__days``) go into
+    a warning; a field stored with another shape than the template's
+    raises a ``ValueError`` naming it (an nt=2 restart read into an nt=41
+    model, say), where the reference takes the array as it is and fails
+    later.  The calendar entries (``__itt``, ``__days``) go into
     ``time_manager`` when one is given and the file has them."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
     known = coupled_state_to_numpy(template)
+    for k, v in known.items():
+        if k in arrays and arrays[k].shape != v.shape:
+            raise ValueError(
+                f"restart {path}: {k} has shape {arrays[k].shape}, the "
+                f"model's is {v.shape}")
     missing = [k for k in known if k not in arrays]
     if missing:
         warnings.warn(

@@ -1,19 +1,22 @@
-"""Carbonate chemistry (OCMIP-2 ``co2calc_SWS``), in PyTorch.
+"""Air-sea gas exchange and carbonate chemistry, in PyTorch.
 
-Port of the carbonate part of ``uvic_tpu.models.bgc.gasx``
-(source/common/co2calc.F): equilibrium constants on the seawater H+
-scale with the Millero (1995) pressure corrections, and the
-alkalinity-DIC iteration for pH as a fixed number of safeguarded Newton
-trips over every point at once.  The trip count is fixed and no trip
-reads a value back to the host, so the solve can be captured in a CUDA
-graph.  The surface gas-flux helpers of the reference belong to the
-coupled path and are not ported here.
+Port of ``uvic_tpu.models.bgc.gasx``: the carbonate chemistry of
+source/common/co2calc.F (OCMIP-2 ``co2calc_SWS``: equilibrium constants
+on the seawater H+ scale with the Millero (1995) pressure corrections,
+and the alkalinity-DIC iteration for pH as a fixed number of safeguarded
+Newton trips over every point at once), and the gasbc.F flux block
+(gasbc.F:310-470: Wanninkhof piston velocities through the open-water
+fraction, Garcia & Gordon O2 saturation, the CO2 and C14 fluxes from
+dco2star, the CFC fluxes from the Warner & Weiss solubilities).  Trip
+counts are fixed and nothing reads a value back to the host, so the
+fluxes can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import torch
 
+XCONV = 33.7 / 3.6e5     # piston velocity conversion (gasbc.F:63)
 PERMIL = 1.0 / 1024.5
 C2K = 273.15
 
@@ -208,3 +211,128 @@ def co2calc_sws(t, s, dic_in, ta_in, co2ppm, pt_in=0.0, sit_in=0.0,
     return dict(co2star=co2star / PERMIL, dco2star=dco2star / PERMIL,
                 pco2=pco2, ph=ph, co3=co3 / PERMIL,
                 omega_c=omega_c, omega_a=omega_a)
+
+
+def o2_saturation(t, s):
+    """O2 saturation [mol/m^3] (Garcia & Gordon 1992; gasbc.F:404-411)."""
+    f1 = torch.log((298.15 - t) / (C2K + t))
+    f2 = f1 * f1
+    f3 = f2 * f1
+    f4 = f3 * f1
+    f5 = f4 * f1
+    o2sat = torch.exp(2.00907 + 3.22014 * f1 + 4.05010 * f2
+                      + 4.94457 * f3 - 2.56847e-1 * f4 + 3.88767 * f5
+                      + s * (-6.24523e-3 - 7.37614e-3 * f1
+                             - 1.03410e-2 * f2 - 8.17083e-3 * f3)
+                      - 4.88682e-7 * s * s)
+    return o2sat / 22391.6 * 1000.0
+
+
+def schmidt_co2(t):
+    return 2073.1 - 125.62 * t + 3.6276 * t ** 2 - 0.043219 * t ** 3
+
+
+def schmidt_o2(t):
+    return 1638.0 - 81.83 * t + 1.483 * t ** 2 - 0.008004 * t ** 3
+
+
+def schmidt_cfc11(t):
+    """CFC-11 Schmidt number, Zheng et al. 1998 (gasbc.F:428)."""
+    return 3501.8 + t * (-210.31 + t * (6.1851 + t * (-0.07513)))
+
+
+def schmidt_cfc12(t):
+    """CFC-12 Schmidt number (gasbc.F:456)."""
+    return 3845.4 + t * (-228.95 + t * (6.1908 + t * (-0.067430)))
+
+
+def cfc_solubility(t, s, which: int):
+    """Warner & Weiss (1985) CFC solubility in mol/(l atm)
+    (gasbc.F:432-436, 460-464).  t in deg C, s in psu."""
+    f1 = (t + 273.16) * 0.01
+    if which == 11:
+        d = (0.091459 - 0.0157274 * f1) * f1 - 0.142382
+        return torch.exp(-229.9261 + 319.6552 / f1
+                         + 119.4471 * torch.log(f1)
+                         - 1.39165 * f1 * f1 + s * d)
+    d = (0.091015 - 0.0153924 * f1) * f1 - 0.143566
+    return torch.exp(-218.0971 + 298.9702 / f1 + 113.8049 * torch.log(f1)
+                     - 1.39165 * f1 * f1 + s * d)
+
+
+def cfc_saturation(t, s, ccn_pptv, which: int):
+    """Surface saturation concentration in mol/m^3 for an atmospheric
+    dry mole fraction in pptv (gasbc.F:439-440)."""
+    return 1.0e-12 * 1000.0 * cfc_solubility(t, s, which) * ccn_pptv
+
+
+def hemispheric_blend(tlat_deg, north, south):
+    """Hemispheric atmospheric values blended linearly across +-10 deg
+    latitude (gasbc.F:419-426)."""
+    wt = torch.clamp((tlat_deg + 10.0) / 20.0, 0.0, 1.0)
+    return north * wt + south * (1.0 - wt)
+
+
+def piston_velocity(wspd_cms, schmidt, open_water):
+    """Wanninkhof (1992) piston velocity [cm/s] (gasbc.F:360-363)."""
+    return open_water * XCONV * (wspd_cms * 0.01) ** 2 \
+        * (schmidt / 660.0) ** -0.5
+
+
+def surface_gas_fluxes(sst, sss, wspd, open_water, surf_tracers, idx,
+                       co2ccn=280.0, alk_default=None, cfc_atm=None,
+                       dc14ccn=0.0):
+    """Gas-exchange surface fluxes of dic, o2, c14, cfc11 and cfc12
+    (gasbc.F:330-467; c14: updates/10 gasbc.F:652-654); dic13 gets none,
+    as in the reference.
+
+    cfc_atm : None or (cfc11ccn, cfc12ccn), 2-D fields in pptv, already
+    blended across the hemispheres (``hemispheric_blend``).
+    dc14ccn : atmospheric Delta-14C [permil] (c14data.F): the c14 flux
+    follows the CO2 exchange with the atmospheric and oceanic 14C ratios.
+    co2ccn and dc14ccn may be numbers or 0-d tensors.
+
+    surf_tracers: (nt, jmt, imt) surface tracer fields.  Returns the
+    (nt, jmt, imt) fluxes [tracer units cm/s], positive into the ocean,
+    and the carbonate diagnostics.
+    """
+    sst_c = torch.clamp(sst, -2.0, 35.0)
+    sss_c = torch.clamp(sss, 0.0, 45.0)
+    rows = {}
+    diags = {}
+    if "dic" in idx:
+        dic = surf_tracers[idx.idic]
+        if "alk" in idx:
+            ta = surf_tracers[idx.ialk]
+        else:
+            ta = 2.36775 * sss_c / 35.0 if alk_default is None \
+                else alk_default
+        carb = co2calc_sws(sst_c, sss_c, dic, ta, co2ccn)
+        pv = piston_velocity(wspd, schmidt_co2(sst_c), open_water)
+        rows[idx.idic] = pv * carb["dco2star"]
+        diags.update(pco2=carb["pco2"], ph=carb["ph"], co3=carb["co3"])
+        if "c14" in idx:
+            # in the normalized c14 units (true c14 / rc14std)
+            c14 = surf_tracers[idx["c14"]]
+            rc_ocn = c14 / torch.clamp(dic, min=1e-12)
+            rows[idx["c14"]] = pv * (
+                (carb["dco2star"] + carb["co2star"])
+                * (1.0 + dc14ccn * 1.0e-3)
+                - carb["co2star"] * rc_ocn)
+    if "o2" in idx:
+        o2 = surf_tracers[idx.io2]
+        pv = piston_velocity(wspd, schmidt_o2(sst_c), open_water)
+        o2sat = o2_saturation(sst_c, sss_c)  # mol/m^3 == umol/cm^3
+        rows[idx.io2] = pv * (o2sat - o2)
+    if cfc_atm is not None and "cfc11" in idx:
+        for which, name, sc_fn, ccn in (
+                (11, "cfc11", schmidt_cfc11, cfc_atm[0]),
+                (12, "cfc12", schmidt_cfc12, cfc_atm[1])):
+            k = idx[name]
+            pv = piston_velocity(wspd, sc_fn(sst_c), open_water)
+            sat = cfc_saturation(sst_c, sss_c, ccn, which)
+            rows[k] = pv * (sat - surf_tracers[k])
+    zero = torch.zeros_like(surf_tracers[0])
+    flux = torch.stack([rows.get(n, zero)
+                        for n in range(surf_tracers.shape[0])])
+    return flux, diags

@@ -11,9 +11,12 @@ configuration (``earth_config()`` on the real-Earth topography);
 ``--from-restart`` seeds the state from a restart and takes the
 fractional year (``relyr``, and the calendar's days with it) from the
 ``restart_meta.json`` beside it; ``--restart`` resumes from
-``OUTDIR/restart.npz`` with its calendar.  Runs on the card unless
-``--device cpu`` is given.  ``--bgc`` other than ``none`` is not ported
-and raises.
+``OUTDIR/restart.npz`` with its calendar.  ``--bgc mobi`` adds the full
+MOBI suite (``mobi_full()``, 41 tracers) and ``--bgc npzd`` the NPZD
+suite with carbon, alkalinity, O2 and nitrogen, as the reference's
+script builds them; their gas exchange with the atmosphere runs in the
+coupler, and the ocean sediments with them where the configuration
+enables ``sed``.  Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -47,12 +50,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.bgc != "none":
-        raise NotImplementedError(
-            f"--bgc {args.bgc}: the coupled bgc gas fluxes are not ported "
-            "to uvic_tpu_torch yet")
 
-    from .config import ModelConfig, earth_config
+    from .config import BgcConfig, ModelConfig, earth_config, mobi_full
     from .coupler.driver import CoupledModel
     from .coupler.run import Run
     from .io.restart import load_restart
@@ -64,6 +63,11 @@ def main(argv=None):
     cfg = cfg.replace(time=dataclasses.replace(
         cfg.time, tsiint=args.tsiint, timavgint=args.timavgint,
         restint=args.restint))
+    if args.bgc == "mobi":
+        cfg = cfg.replace(bgc=mobi_full())
+    elif args.bgc == "npzd":
+        cfg = cfg.replace(bgc=BgcConfig(
+            suite="npzd", carbon=True, alk=True, o2=True, nitrogen=True))
 
     model = CoupledModel(cfg, topo_kind="earth" if args.earth else "world",
                          device=args.device)
