@@ -121,7 +121,33 @@ Phases (each failure ends the run with a non-zero exit code):
    float64 row of EARTH_BGC_GOLDEN within that file's tolerances, nconv
    equal; ``tavg.nc`` with every surf_<tracer>, all finite;
    ``restart.npz`` with 41 tracers and the sediments' seven fields.
-9. torch.profiler, last (a session taken after an earlier one and ~1e5
+9. The spin-up and the coupled options.  (a) The earth model at
+   acceleration ACCEL (``earth_config(accel=ACCEL)``, from EARTH_RESTART):
+   B1's twodt_k must differ by level; the three kernels held against
+   their plain versions on an ocean step's inputs (phase 2's noise and
+   tolerances; B3's M from dzt/dtxcel); EARTH_ACCEL_SEGMENTS segments
+   eager and replayed, bitwise equal (launch counters: ntspos of each
+   kernel a segment, eager and in the graphs); EARTH_OPTION_BARE more
+   replays timed.  Then one year through ``uvic_tpu_torch.spinup.main``
+   (``1 --accel ACCEL --resume``) from a copy of SPINUP_START: the row
+   with the script's keys and year 1061, every key within the limits of
+   SPINUP_GOLDEN, ``restart.npz`` and ``restart_meta.json`` written, the
+   year's seconds and simulated years a day, the wrappers' counters over
+   it (the captures); and a second ``--resume`` of one segment that
+   must start from year 1061.  (b) Each of EARTH_OPTIONS (multi-category
+   ice, brine convection, the ice off, no EVP, free drift) on its own
+   earth model from EARTH_RESTART: EARTH_OPTION_SEGMENTS segments eager
+   and replayed, bitwise equal and finite, each graph set's capture and
+   instantiation seconds and nodes, EARTH_OPTION_BARE more replays
+   timed; on the brine path B3 held against
+   its plain version on each of an ocean step's BRINE_CONVECTIONS
+   convections, and its counter BRINE_CONVECTIONS an ocean step (eager
+   and in the graph).  (c) The multi-category ice run of CPTS_GOLDEN in
+   float32 on the card against float64 on the CPU, both eager with the
+   barotropic CG's trips printed: every field within its limit (5x the
+   JAX package's own float32 gap), the barotropic fields
+   (CPTS_BAROTROPIC) too unless a solve's trips differ between the two.
+10. torch.profiler, last (a session taken after an earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
@@ -137,10 +163,12 @@ counts on each path by the wrappers' counters: over the eager steps,
 and per replayed step type as captured in its graph, and a segment of
 the earth path, eager and replayed, and over the year through Run each
 graph's replays times the launches captured in it, and the same on the
-earth carbon-cycle path; `nt41` the phase 2 readings on the MOBI
-inputs, `earth` the phase 6 readings on the earth inputs, `earth_bgc`
-the phase 8 readings on the earth carbon cycle's inputs) and the result
-line {"ok": true, "device": {...}}.
+earth carbon-cycle path, and on the paths of phase 9; `nt41` the phase
+2 readings on the MOBI inputs, `earth` the phase 6 readings on the earth
+inputs, `earth_bgc` the phase 8 readings on the earth carbon cycle's
+inputs, `earth_accel` the phase 9 readings on the accelerated inputs,
+`earth_brine` the apply's on the brine path) and the result line
+{"ok": true, "device": {...}}.
 
 With --times the script builds the flagship and the full-MOBI flagship
 and captures the kernels' inputs as in phase 2, then prints one JSON
@@ -296,6 +324,42 @@ EARTH_BGC_RUN_TIME = dict(tsiint=5.0, timavgint=30.0, restint=30.0)
 EARTH_BGC_GOLDEN = "golden/regression/bgc_earth_month.json"
 EARTH_BGC_GAS = ("dic", "o2", "c14", "cfc11", "cfc12")
 EARTH_BGC_BOTTOM = ("dic", "alk")
+# The spin-up and the coupled options (phase 9): the deep acceleration of
+# the spin-up (accel.h dtxcel at the bottom level), the golden row of
+# its year (golden/regression/spinup_earth_year.py: the JAX package's
+# float64 row, each key's limit 5x its largest gap over five float32
+# runs, four from a restart moved by round-off, at least one unit of
+# the key's rounding), the segments each option runs eagerly and
+# replayed, the bare replays timed at acceleration, the options with the
+# changes they make to earth_config(), and the multi-category ice run of
+# golden/regression/cpts_small_segments.py (the port's float32 on the
+# card against its float64 on the CPU, each field within 5x the JAX
+# package's own float32 gap on the same run).
+ACCEL = 4.0
+SPINUP_START = "earth_accept"
+SPINUP_GOLDEN = "golden/regression/spinup_earth_year.json"
+EARTH_ACCEL_SEGMENTS = 2
+EARTH_OPTION_SEGMENTS = 2
+EARTH_OPTION_BARE = 4
+EARTH_OPTIONS = {
+    "cpts": ("ice", dict(cpts=3)),
+    "convect_brine": ("ocean", dict(convect_brine=True)),
+    "no_ice": ("ice", dict(enabled=False)),
+    "no_evp": ("ice", dict(evp=False)),
+    "freedrift": ("ice", dict(ice_ocn_stress="freedrift")),
+}
+BRINE_CONVECTIONS = 3           # convct_full calls a brine ocean step
+CPTS_GOLDEN = "golden/regression/cpts_small_segments.json"
+# The barotropic solve's fields of that run are held unless a float32
+# solve took another number of CG trips than float64's.  The run's CG
+# tolerance (tolrsf 1e8 on a psi of ~3.7e12) leaves some solves at the
+# edge of the stop: float64's first trip moves psi by 0.992 tolrsf at
+# the fifth ocean step and by 0.975 at the tenth, so a 1% gap of
+# round-off decides between one trip and ~30 (the port's float32 run
+# on a CPU: 1.001, then 29 trips; the JAX package's: 0.983, one trip),
+# and the fields then differ by up to the solve's tolerance
+# (golden/regression/cpts_small_segments.py --trips).
+CPTS_BAROTROPIC = ("ocean/psi0", "ocean/psi1", "ocean/ptd", "ocean/ptdb")
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -519,9 +583,12 @@ def perturbed(m, state):
 
 def capture_step(m, state, forcing):
     """One leapfrog step of the model with the arguments each kernel
-    wrapper receives recorded."""
+    wrapper receives recorded: the last convection's in ``convect``, and
+    every convection's in ``convect_calls`` (three on the brine path,
+    whose ``convct_brine`` calls ``convct_full`` in ops/convection.py)."""
     import uvic_tpu_torch.models.ocean.model as model_mod
-    seen = {}
+    import uvic_tpu_torch.ops.convection as conv_mod
+    seen = {"convect_calls": []}
     tracer, convect, solver = (model_mod.fct_tracer_step,
                                model_mod.convct_full, m.cg_solver)
 
@@ -531,6 +598,7 @@ def capture_step(m, state, forcing):
 
     def rec_convect(*a):
         seen["convect"] = a
+        seen["convect_calls"].append(a)
         return convect(*a)
 
     def rec_solver(*a):
@@ -539,12 +607,14 @@ def capture_step(m, state, forcing):
 
     model_mod.fct_tracer_step = rec_tracer
     model_mod.convct_full = rec_convect
+    conv_mod.convct_full = rec_convect
     m.cg_solver = rec_solver
     try:
         state = m.step(state, forcing, leapfrog=True)
     finally:
         model_mod.fct_tracer_step = tracer
         model_mod.convct_full = convect
+        conv_mod.convct_full = convect
         m.cg_solver = solver
     return state, seen
 
@@ -1202,8 +1272,7 @@ def earth_capture(m, state):
     its first ocean step, and the arguments each kernel wrapper receives
     in an ocean step from there, with the segment's forcing and the
     phase 2 noise added to T and S."""
-    from uvic_tpu_torch.coupler.driver import (FORCING_NAMES, host_of,
-                                               pack_state)
+    from uvic_tpu_torch.coupler.driver import host_of, pack_state
     from uvic_tpu_torch.models.ocean.model import make_forcing
     if m.transient is not None:
         m._update_transient()       # the segment's forcing, as run() does
@@ -1214,7 +1283,8 @@ def earth_capture(m, state):
         if name == "ocean":
             break
         ws.update(m.stage(name, flag, ws, host))
-    forcing = make_forcing(**{k: ws["forcing/" + k] for k in FORCING_NAMES})
+    forcing = make_forcing(**{k: ws["forcing/" + k]
+                              for k in m.forcing_names})
     return capture_step(m.ocean, perturbed(m.ocean, state.ocean), forcing)[1]
 
 
@@ -1297,72 +1367,16 @@ def earth_bgc_phase():
     del seen, args, stf, btf, src
 
     from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
-    counters = dict(KERNEL_WRAPPERS)
-    for w in counters.values():
-        w.launches = 0
     relyr0 = m.relyr
-    eager_ms, eager = [], start
-    for _ in range(EARTH_BGC_SEGMENTS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        eager = m.run(eager, 1, eager=True)
-        torch.cuda.synchronize()
-        eager_ms.append((time.perf_counter() - t1) * 1e3)
-    eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
-    per_seg = {k: w.launches / EARTH_BGC_SEGMENTS
-               for k, w in counters.items()}
-    say(f"  {EARTH_BGC_SEGMENTS} eager segments: "
-        f"{', '.join(f'{t:.1f}' for t in eager_ms)} ms; kernel launches a "
-        f"segment {json.dumps(per_seg)}; CG iterations of the last "
-        f"{m.seg_cg_iters.tolist()}")
-    for k, c in per_seg.items():
-        if c != m.ntspos:
-            raise AssertionError(f"earth bgc eager: {k} launched {c} times "
-                                 f"a segment, not {m.ntspos}")
-    surf = sorted(k for k in eager_tavg if k.startswith("surf_"))
+    seg = eager_against_replayed(m, start, EARTH_BGC_SEGMENTS, "earth bgc",
+                                 bare=0, stage_graphs=True)
+    g = m._graphs
+    surf = sorted(k for k in seg["eager_tavg"] if k.startswith("surf_"))
+    say(f"  surf_* time means {len(surf)}; workspace inputs "
+        f"{sorted(g.inputs)}; graph nodes by stage "
+        f"{json.dumps(seg['nodes'])}")
     if surf != sorted("surf_" + n for n in names[2:]):
         raise AssertionError(f"earth bgc: time means {surf}")
-
-    m.relyr = relyr0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    first = m.run(start, 1)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t1
-    replay_ms = []
-    replayed = first
-    for _ in range(EARTH_BGC_SEGMENTS - 1):
-        t1 = time.perf_counter()
-        replayed = m.run(replayed, 1)
-        torch.cuda.synchronize()
-        replay_ms.append((time.perf_counter() - t1) * 1e3)
-    diff, counters_equal = coupled_diff(replayed, eager)
-    tavg_diff = coupled_tavg_diff(m, eager_tavg)
-    g = m._graphs
-    say(f"  the same {EARTH_BGC_SEGMENTS} segments replayed (the first "
-        f"{first_s:.1f} s with the captures, then "
-        f"{', '.join(f'{t:.1f}' for t in replay_ms)} ms): max |diff| "
-        f"against the eager ones {diff:.3e} in the state (sediments "
-        f"included), {tavg_diff:.3e} in the time means (surf_* included; "
-        f"bitwise required); workspace inputs {sorted(g.inputs)}")
-    if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
-        raise AssertionError("earth bgc: replayed segments differ from the "
-                             "eager ones")
-    say_segment_graphs(g)
-    run_counts = {k: 0 for k in counters}
-    nodes = {}
-    for name, flag in m.schedule(dict(itt=start.ocean.itt,
-                                      nats=start.atm.nats)):
-        for k in run_counts:
-            run_counts[k] += g.captured[(name, flag)][k]
-        key = name if flag is None else f"{name} {flag}"
-        nodes[key] = graph_nodes(g.graphs[(name, flag)])
-    say(f"  a replayed segment's launches {json.dumps(run_counts)}; graph "
-        f"nodes by stage {json.dumps(nodes)}")
-    for k, c in run_counts.items():
-        if c != m.ntspos:
-            raise AssertionError(f"earth bgc replayed: {k} launched {c} "
-                                 f"times a segment, not {m.ntspos}")
 
     with open(EARTH_BGC_GOLDEN) as f:
         golden = json.load(f)
@@ -1399,7 +1413,7 @@ def earth_bgc_phase():
         raise AssertionError("earth bgc Run: graphs captured again")
     month_counts = {k: sum((n - replays0[key]) * g.captured[key][k]
                            for key, n in g.replays.items())
-                    for k in counters}
+                    for k in KERNEL_WRAPPERS}
     worst, failed = bgc_month_gaps(rows, golden)
     say(f"  {month_s:.1f} s; segment time inside Run "
         f"{', '.join(f'{t:.1f}' for t in run_ms)} ms (the row's reductions "
@@ -1437,12 +1451,12 @@ def earth_bgc_phase():
         f"tracers, {sed_keys}")
     check_finite(state.ocean, "the earth bgc month")
     shutil.rmtree(outdir)
-    out.update(eager_ms=statistics.median(eager_ms),
-               replay_ms=statistics.median(replay_ms),
-               run_ms=statistics.median(run_ms), eager_counts=per_seg,
-               run_counts=run_counts, month_counts=month_counts,
-               graph_nodes=nodes, capture_s=first_s)
-    del m, g, eager, replayed, first, state, run
+    out.update(eager_ms=seg["eager_ms"], replay_ms=seg["replay_ms"],
+               run_ms=statistics.median(run_ms),
+               eager_counts=seg["eager_counts"],
+               run_counts=seg["run_counts"], month_counts=month_counts,
+               graph_nodes=seg["nodes"], capture_s=seg["first_s"])
+    del m, g, seg, state, run
     torch.cuda.empty_cache()
     return out
 
@@ -1538,10 +1552,8 @@ def earth_phase():
     import tempfile
 
     import torch
+    from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
     from uvic_tpu_torch.coupler.run import Run
-    from uvic_tpu_torch.ops.cg_kernel import congrad_launch
-    from uvic_tpu_torch.ops.convection import apply_region_means
-    from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
     out = {}
     t0 = time.perf_counter()
     m, start = earth_model()
@@ -1564,46 +1576,8 @@ def earth_phase():
     say(" congrad, earth (six islands)")
     out["cg"] = check_cg(m.ocean, seen)
 
-    counters = {"fct_tracer_step": fct_tracer_step,
-                "apply_region_means": apply_region_means,
-                "congrad": congrad_launch}
-    for w in counters.values():
-        w.launches = 0
-    seg_ms, eager = [], start
-    for _ in range(EARTH_SEGMENTS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        eager = m.run(eager, 1, eager=True)
-        torch.cuda.synchronize()
-        seg_ms.append((time.perf_counter() - t1) * 1e3)
-    eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
-    per_seg = {k: w.launches / EARTH_SEGMENTS for k, w in counters.items()}
-    say(f"  {EARTH_SEGMENTS} eager segments: "
-        f"{', '.join(f'{t:.1f}' for t in seg_ms)} ms; kernel launches a "
-        f"segment {json.dumps(per_seg)}; BiCGSTAB trips (humidity, "
-        f"temperature) of the last segment's atmosphere steps "
-        f"{m.seg_trips.tolist()}; CG iterations {m.seg_cg_iters.tolist()}")
-    for k, c in per_seg.items():
-        if c != m.ntspos:
-            raise AssertionError(f"earth eager: {k} launched {c} times a "
-                                 f"segment, not {m.ntspos}")
-
-    m.relyr = relyr0
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    replayed = m.run(start, EARTH_SEGMENTS)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t1
-    diff, counters_equal = coupled_diff(replayed, eager)
-    tavg_diff = coupled_tavg_diff(m, eager_tavg)
-    say(f"  the same {EARTH_SEGMENTS} segments replayed ({first_s:.1f} s "
-        f"with the captures): max |diff| against the eager ones "
-        f"{diff:.3e} in the state, {tavg_diff:.3e} in the time means "
-        "(bitwise required)")
-    if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
-        raise AssertionError("earth: replayed segments differ from the "
-                             "eager ones")
-    say_segment_graphs(m._graphs)
+    seg = eager_against_replayed(m, start, EARTH_SEGMENTS, "earth", bare=0,
+                                 stage_graphs=True)
 
     say(f"  one year through the port's Run from {EARTH_RESTART} "
         f"({EARTH_YEAR} segments; {json.dumps(EARTH_RUN_TIME)}), the graphs "
@@ -1613,7 +1587,7 @@ def earth_phase():
         "temperature.gpu)")
     outdir = tempfile.mkdtemp(prefix="earth_run_")
     m._graphs = None
-    for w in counters.values():
+    for w in KERNEL_WRAPPERS.values():
         w.launches = 0
     logs = []
     m.relyr = relyr0
@@ -1625,19 +1599,19 @@ def earth_phase():
     year_s = time.perf_counter() - t1
     relyr_year = m.relyr
     g = m._graphs
-    run_counts = {k: 0 for k in counters}
+    run_counts = {k: 0 for k in KERNEL_WRAPPERS}
     nodes = 0
     for name, flag in m.schedule(dict(itt=start.ocean.itt,
                                       nats=start.atm.nats)):
         for k in run_counts:
             run_counts[k] += g.captured[(name, flag)][k]
         nodes += graph_nodes(g.graphs[(name, flag)]) or 0
-    captures = {k: w.launches for k, w in counters.items()}
+    captures = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
     # the year's kernel launches through the graphs: each graph's replays
     # over the year times the launches captured in it
     year_counts = {k: sum(n * g.captured[key][k]
                           for key, n in g.replays.items())
-                   for k in counters}
+                   for k in KERNEL_WRAPPERS}
     say(f"  {EARTH_YEAR} segments in {year_s:.1f} s; segment time inside "
         f"Run median {statistics.median(run_ms):.1f} ms (min "
         f"{min(run_ms):.1f}, max {max(run_ms):.1f}, the first with the "
@@ -1682,9 +1656,10 @@ def earth_phase():
         f"{statistics.median(bare_ms):.1f} ms against "
         f"{statistics.median(run_ms):.1f} ms inside Run; card after them: "
         f"{clocks_line()}")
-    out.update(eager_ms=statistics.median(seg_ms),
+    out.update(eager_ms=seg["eager_ms"],
                replay_ms=statistics.median(bare_ms),
-               run_ms=statistics.median(run_ms), eager_counts=per_seg,
+               run_ms=statistics.median(run_ms),
+               eager_counts=seg["eager_counts"],
                run_counts=run_counts, year_counts=year_counts,
                graph_nodes=nodes, model=m, start=start)
     return out
@@ -2006,6 +1981,410 @@ def earth_launches(m, state):
     return counts
 
 
+def earth_option_model(section=None, change=None, accel=1.0):
+    """The earth model on the card from EARTH_RESTART with its relyr, its
+    configuration ``earth_config(accel=accel)`` with ``change`` made to
+    the ``section`` (ice or ocean) part."""
+    from uvic_tpu_torch.config import earth_config
+    cfg = earth_config(accel=accel)
+    if section is not None:
+        cfg = cfg.replace(**{section: dataclasses.replace(
+            getattr(cfg, section), **change)})
+    return earth_model(cfg)
+
+
+def eager_against_replayed(m, start, nseg, label, per_step=None,
+                           bare=EARTH_OPTION_BARE, stage_graphs=False):
+    """``nseg`` segments from ``start`` eagerly (the wrappers' counters
+    from 0), then the same segments replayed from stage graphs captured
+    anew: bitwise equal in the state and the time means, each kernel
+    launched ``per_step`` times an ocean step (once where not given) in
+    both, every field finite; then ``bare`` more replays timed (the
+    first replays after a capture can run slow, PERF.md section 7).
+    ``stage_graphs`` prints each stage graph.  Returns the times, the
+    launches, the graphs' nodes (in all and by stage) and the eager
+    segments' time means."""
+    import torch
+    from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
+    per_step = dict(dict.fromkeys(KERNEL_WRAPPERS, 1), **(per_step or {}))
+    relyr0 = m.relyr
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    eager_ms, eager = [], start
+    for _ in range(nseg):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager = m.run(eager, 1, eager=True)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+    eager_tavg = {k: v.clone() for k, v in m.last_tavg.items()}
+    per_seg = {k: w.launches / nseg for k, w in KERNEL_WRAPPERS.items()}
+    say(f"  {label}: {nseg} eager segments "
+        f"{', '.join(f'{t:.1f}' for t in eager_ms)} ms, launches a segment "
+        f"{json.dumps(per_seg)}; BiCGSTAB trips (humidity, temperature) of "
+        f"the last segment's atmosphere steps {m.seg_trips.tolist()}; CG "
+        f"iterations {m.seg_cg_iters.tolist()}")
+    m.relyr = relyr0
+    m._graphs = None
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    replayed = m.run(start, 1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    replay_ms = []
+    for _ in range(nseg - 1):
+        t1 = time.perf_counter()
+        replayed = m.run(replayed, 1)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t1) * 1e3)
+    diff, counters_equal = coupled_diff(replayed, eager)
+    tavg_diff = coupled_tavg_diff(m, eager_tavg)
+    g = m._graphs
+    run_counts = {k: 0 for k in KERNEL_WRAPPERS}
+    nodes, total_nodes = {}, 0
+    for name, flag in m.schedule(dict(itt=start.ocean.itt,
+                                      nats=start.atm.nats)):
+        for k in run_counts:
+            run_counts[k] += g.captured[(name, flag)][k]
+        key = name if flag is None else f"{name} {flag}"
+        nodes[key] = graph_nodes(g.graphs[(name, flag)])
+        total_nodes += nodes[key] or 0
+    capture_s = sum(g.capture_s.values())
+    instantiate_s = sum(g.instantiate_s.values())
+    say(f"  {label}: replayed: the first {first_s:.2f} s (captures "
+        f"{capture_s:.2f} s, instantiations {instantiate_s:.2f} s), then "
+        f"{', '.join(f'{t:.1f}' for t in replay_ms)} ms; {total_nodes} "
+        f"graph nodes, launches a replayed segment {json.dumps(run_counts)}"
+        f"; max |diff| against the eager ones {diff:.3e} in the state, "
+        f"{tavg_diff:.3e} in the time means (bitwise required)")
+    if stage_graphs:
+        say_segment_graphs(g)
+    if diff != 0.0 or tavg_diff != 0.0 or not counters_equal:
+        raise AssertionError(f"{label}: replayed segments differ from the "
+                             "eager ones")
+    for k in KERNEL_WRAPPERS:
+        want = per_step[k] * m.ntspos
+        if per_seg[k] != want or run_counts[k] != want:
+            raise AssertionError(f"{label}: {k} launched {per_seg[k]} times "
+                                 f"an eager segment, {run_counts[k]} a "
+                                 f"replayed one, not {want}")
+    check_finite(replayed.ocean, label)
+    for name, field in (("atm/at", replayed.atm.at),
+                        ("ice/hice", replayed.ice.hice)):
+        if not bool(torch.isfinite(field).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    if replayed.cpts is not None:
+        for f in ("A", "heff", "E"):
+            if not bool(torch.isfinite(getattr(replayed.cpts, f)).all()):
+                raise AssertionError(f"{label}: non-finite cpts/{f}")
+    bare_ms, state = [], replayed
+    for _ in range(bare):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = m.run(state, 1)
+        torch.cuda.synchronize()
+        bare_ms.append((time.perf_counter() - t1) * 1e3)
+    if bare:
+        say(f"  {label}: {bare} more replayed segments "
+            f"{', '.join(f'{x:.1f}' for x in bare_ms)} ms, median "
+            f"{statistics.median(bare_ms):.1f} ms")
+    return dict(eager_ms=statistics.median(eager_ms),
+                replay_ms=statistics.median(bare_ms or replay_ms),
+                eager_counts=per_seg, run_counts=run_counts,
+                graph_nodes=total_nodes, nodes=nodes, capture_s=capture_s,
+                instantiate_s=instantiate_s, first_s=first_s,
+                eager_tavg=eager_tavg)
+
+
+def spinup_out_of_limits(row, golden):
+    """The keys of a spin-up row outside ``golden``'s limits (element by
+    element for a list), or not equal where the golden holds them equal,
+    with (value, reference, limit)."""
+    ref, limits = golden["row"], golden["limit"]
+    bad = {}
+    for key in golden["equal"]:
+        if row.get(key) != ref[key]:
+            bad[key] = (row.get(key), ref[key], 0)
+    for key, lim in limits.items():
+        got, want = row.get(key), ref[key]
+        if got is None:
+            bad[key] = (None, want, lim)
+            continue
+        vals = (zip(got, want, lim) if isinstance(lim, list)
+                else [(got, want, lim)])
+        # both rows are rounded to a key's digits: the difference of two
+        # such decimals carries binary round-off (17.1 - 17.0 >
+        # 0.1), taken off at 9 digits
+        if any(not round(abs(a - b), 9) <= c for a, b, c in vals):
+            bad[key] = (got, want, lim)
+    return bad
+
+
+def spinup_year():
+    """One accelerated spin-up year through ``uvic_tpu_torch.spinup.main``
+    (``1 --accel ACCEL --resume``) from a copy of SPINUP_START: the row
+    against SPINUP_GOLDEN, the restart and its meta, and a second
+    ``--resume`` of one segment starting from the year the first wrote.
+    Returns the year's seconds and the wrappers' launches over it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import uvic_tpu_torch.spinup as spinup
+    from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
+    with open(SPINUP_GOLDEN) as f:
+        golden = json.load(f)
+    work = tempfile.mkdtemp(prefix="spinup_")
+    for name in ("restart.npz", "restart_meta.json"):
+        shutil.copy(os.path.join(SPINUP_START, name), work)
+    log = os.path.join(work, "spinup_log.jsonl")
+    args = ["--accel", f"{ACCEL:g}", "--resume", "--out", work,
+            "--run-id", "chip_smoke"]
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    spinup.main(["1"] + args)
+    torch.cuda.synchronize()
+    year_s = time.perf_counter() - t1
+    launches = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+    with open(log) as f:
+        rows = [json.loads(line) for line in f]
+    row = rows[-1]
+    say(f"  python3 -m uvic_tpu_torch.spinup 1 {' '.join(args)} (from a "
+        f"copy of {SPINUP_START}/): {year_s:.1f} s with the model's build "
+        f"and the graphs' capture, the row's wall_s {row['wall_s']} s, "
+        f"{86400.0 / year_s:.0f} simulated years a day; the wrappers' "
+        f"launches over it (the captures and the capture's warm-up "
+        f"segment) {json.dumps(launches)}")
+    say(f"  row: {json.dumps(row)}")
+    bad = spinup_out_of_limits(row, golden)
+    nearest = max(((abs(row[k] - golden['row'][k]) / lim, k)
+                   for k, lim in golden["limit"].items()
+                   if not isinstance(lim, list)), default=(0.0, None))
+    say(f"  held against {SPINUP_GOLDEN} ({golden['limit_rule']}): "
+        f"{len(golden['limit'])} keys, out of limits {json.dumps(bad)}; "
+        f"nearest its limit {nearest[1]} at {nearest[0]:.2f} of it")
+    if len(rows) != 1 or list(row) != golden["keys"] or bad \
+            or min(launches.values()) == 0:
+        raise AssertionError(f"spin-up year: {len(rows)} rows, keys "
+                             f"{list(row)}, out of limits {bad}")
+    with open(os.path.join(work, "restart_meta.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(work, "restart.npz")) as d:
+        nkeys = len(d.files)
+    say(f"  restart_meta.json {json.dumps(meta)}; restart.npz with {nkeys} "
+        "fields")
+    if meta["year"] != 1061 or meta["accel"] != ACCEL:
+        raise AssertionError(f"spin-up: restart_meta.json {meta}")
+
+    # the second --resume, one segment for its year
+    loop = spinup.run_years
+    spinup.run_years = lambda *a, **k: loop(*a, seg_per_year=1, **k)
+    try:
+        spinup.main(["1"] + args)
+    finally:
+        spinup.run_years = loop
+    with open(log) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(work, "restart_meta.json")) as f:
+        meta2 = json.load(f)
+    say(f"  a second --resume (one segment): row year {rows[-1]['year']}, "
+        f"restart_meta.json {json.dumps(meta2)}")
+    if len(rows) != 2 or rows[-1]["year"] != 1062 \
+            or meta2["relyr"] <= meta["relyr"]:
+        raise AssertionError("spin-up: the second --resume did not start "
+                             "from the first's year")
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    return dict(year_s=year_s, wall_s=row["wall_s"], launches=launches,
+                row=row)
+
+
+def cpts_small_config(cfg):
+    """tests/test_cpts.py::test_coupled_cpts_segments's configuration
+    from a ``small_config()`` of either package."""
+    return cfg.replace(
+        ocean=dataclasses.replace(
+            cfg.ocean, isopycmix=False, gent_mcwilliams=False,
+            dtts=43200.0, dtuv=1800.0, dtsf=1800.0, tolrsf=1e8),
+        ice=dataclasses.replace(cfg.ice, cpts=3, nlay=4))
+
+
+def cpts_small_initial_t(grid, tmask):
+    """test_coupled_cpts_segments's initial temperature, salinity 0."""
+    import numpy as np
+    g = grid
+    t0 = np.zeros((2, g.km, g.jmt, g.imt))
+    lat = np.broadcast_to(g.yt[:, None], (g.jmt, g.imt))
+    sst = np.maximum(29.0 * np.cos(np.deg2rad(lat)) ** 2 - 1.93, -1.93)
+    t0[0] = np.where(np.abs(lat)[None] > 60, -1.93,
+                     sst[None] * np.exp(-np.asarray(g.zt) / 800e2)
+                     [:, None, None])
+    return t0 * np.asarray(tmask)
+
+
+def field_gap(got, ref):
+    """max |got - ref| over max |ref| (0 where both are all zero)."""
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max())
+    scale = float(np.abs(ref).max())
+    return err / scale if scale > 0 else (0.0 if err == 0 else np.inf)
+
+
+def port_cg_trips(m, state, nseg):
+    """``nseg`` eager segments of the port's coupled model ``m`` from
+    ``state``: the end state and the barotropic CG's trips of each ocean
+    step (``seg_cg_iters``)."""
+    trips = []
+    for _ in range(nseg):
+        state = m.run(state, 1, eager=True)
+        trips += m.seg_cg_iters.tolist()
+    return state, trips
+
+
+def cpts_float32(device="cuda"):
+    """The multi-category ice run of CPTS_GOLDEN, the port in float32 on
+    ``device`` against the port in float64 on the CPU, both eager with
+    the barotropic CG's trips read back: each field's gap against its
+    limit.  The barotropic fields (CPTS_BAROTROPIC) are held unless a
+    solve took another number of trips in float32 than in float64.
+    Returns the gaps, the fields out of limits, each field's share of
+    its limit, the trips of each precision and the ocean steps whose
+    trips differ."""
+    import numpy as np
+    from uvic_tpu_torch.config import small_config
+    from uvic_tpu_torch.convert import coupled_state_to_numpy
+    from uvic_tpu_torch.coupler.driver import CoupledModel
+    with open(CPTS_GOLDEN) as f:
+        golden = json.load(f)
+    states, trips = {}, {}
+    for dtype, dev in (("float64", "cpu"), ("float32", device)):
+        m = CoupledModel(cpts_small_config(small_config()).replace(
+            dtype=dtype), device=dev)
+        t0 = cpts_small_initial_t(m.grid, m.topo.tmask)
+        state, trips[dtype] = port_cg_trips(m, m.init_state(t0),
+                                            golden["segments"])
+        states[dtype] = coupled_state_to_numpy(state)
+    r64, r32 = states["float64"], states["float32"]
+    flips = [n + 1 for n, (a, b) in enumerate(zip(trips["float32"],
+                                                  trips["float64"]))
+             if a != b]
+    exempt = CPTS_BAROTROPIC if flips else ()
+    gaps = {k: field_gap(r32[k], r64[k]) for k in golden["limit"]}
+    share = {k: g / golden["limit"][k] for k, g in gaps.items()}
+    bad = {k: (g, golden["limit"][k]) for k, g in gaps.items()
+           if not share[k] <= 1.0 and k not in exempt}
+    bad.update({k: (r32[k].tolist(), r64[k].tolist())
+                for k in golden["equal"]
+                if not np.array_equal(r32[k], r64[k])})
+    return gaps, bad, share, trips, flips
+
+
+def spinup_options_phase():
+    """Phase 9: the spin-up's deep acceleration (the kernels on its
+    inputs, eager against replayed, a spin-up year through
+    ``uvic_tpu_torch.spinup``), each remaining coupled option eager
+    against replayed (brine convection with the apply held on its three
+    convections), and the multi-category ice in float32."""
+    import torch
+    from uvic_tpu_torch.ops.convection import (apply_region_means,
+                                               apply_region_means_ref)
+    out = {}
+    say(f" (a) the spin-up: earth_config(accel={ACCEL:g}) from "
+        f"{EARTH_RESTART}")
+    t0 = time.perf_counter()
+    m, start = earth_option_model(accel=ACCEL)
+    dtxcel = m.ocean.g.dtxcel
+    say(f"  built in {time.perf_counter() - t0:.1f} s; dtxcel by level "
+        f"{[round(float(x), 3) for x in dtxcel]}")
+    seen = earth_capture(m, start)
+    twodt = seen["tracer"][0][10]
+    say(f"  the tracer step's twodt_k: min {float(twodt.min()):.1f} s, max "
+        f"{float(twodt.max()):.1f} s ({twodt.numel()} levels)")
+    if not float(twodt.max()) > float(twodt.min()):
+        raise AssertionError("accelerated twodt_k is the same on every "
+                             "level")
+    say(" fct_tracer_step, earth accel")
+    out["tracer"] = check_tracer(m.ocean, seen, "earth accel tracer step")
+    say(" apply_region_means, earth accel (M from dzt / dtxcel)")
+    out["convect"] = check_convect(seen)
+    say(" congrad, earth accel")
+    out["cg"] = check_cg(m.ocean, seen)
+    del seen
+    out["accel"] = eager_against_replayed(m, start, EARTH_ACCEL_SEGMENTS,
+                                          f"accel {ACCEL:g}")
+    del m, start
+    torch.cuda.empty_cache()
+    out["year"] = spinup_year()
+
+    say(f" (b) the coupled options, each from {EARTH_RESTART}, "
+        f"{EARTH_OPTION_SEGMENTS} segments eager and replayed")
+    out["options"] = {}
+    for name, (section, change) in EARTH_OPTIONS.items():
+        t0 = time.perf_counter()
+        m, start = earth_option_model(section, change)
+        say(f"  {name} ({section} {json.dumps(change)}): built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        per_step = None
+        if name == "convect_brine":
+            seen = earth_capture(m, start)
+            calls = len(seen["convect_calls"])
+            say(f"  an ocean step's convections: {calls}")
+            if calls != BRINE_CONVECTIONS:
+                raise AssertionError(f"brine: {calls} convections a step")
+            for n, args in enumerate(seen["convect_calls"][:-1]):
+                ts, mnorm, ocean, _ = convect_inputs({"convect": args})
+                got = apply_region_means(ts, mnorm, ocean)
+                ref = apply_region_means_ref(ts, mnorm, ocean)
+                worst, _ = say_errors(
+                    [inc_err(got[i], ref[i], ts[i])
+                     for i in range(got.shape[0])], TOL_CONVECT)
+                if not worst <= TOL_CONVECT:
+                    raise AssertionError(f"brine convection {n}: err / "
+                                         f"increment {worst}")
+            say(" apply_region_means, earth brine (the ice category's "
+                "convection, timed)")
+            out["brine_convect"] = check_convect(seen)
+            del seen
+            per_step = {"apply_region_means": BRINE_CONVECTIONS}
+        out["options"][name] = eager_against_replayed(
+            m, start, EARTH_OPTION_SEGMENTS, name, per_step)
+        if name == "convect_brine":
+            key = ("ocean", True)
+            captured = m._graphs.captured[key]["apply_region_means"]
+            say(f"  the leapfrog ocean graph holds {captured} launches of "
+                "the apply")
+            if captured != BRINE_CONVECTIONS:
+                raise AssertionError(f"brine graph: {captured} applies")
+        del m, start
+        torch.cuda.empty_cache()
+
+    say(f" (c) the multi-category ice in float32: {CPTS_GOLDEN}'s run, the "
+        "port in float32 on the card against float64 on the CPU")
+    gaps, bad, share, trips, flips = cpts_float32()
+    say("  gaps " + json.dumps({k: float(f"{g:.3e}")
+                                for k, g in gaps.items()}))
+    say(f"  barotropic CG trips by ocean step, float32 on the card "
+        f"{trips['float32']}, float64 on the CPU {trips['float64']}; "
+        f"steps whose trips differ (from 1) {flips}")
+    held = {k: v for k, v in share.items()
+            if not flips or k not in CPTS_BAROTROPIC}
+    worst = max(held, key=held.get)
+    say(f"  largest share of a limit {held[worst]:.2f} ({worst}); out of "
+        f"limits {json.dumps(bad)}; the barotropic fields at "
+        + json.dumps({k: round(share[k], 2) for k in CPTS_BAROTROPIC})
+        + " of their limits, "
+        + ("not held: a solve's stop fell on the other side of tolrsf "
+           "(CPTS_BAROTROPIC)" if flips else "held"))
+    if bad:
+        raise AssertionError(f"cpts float32: out of limits {bad}")
+    out["cpts_share"] = share
+    return out
+
+
 def main(argv):
     if len(argv) == 2 and argv[0] == "--golden-gaps":
         return golden_gaps_of(argv[1])
@@ -2179,10 +2558,27 @@ def main(argv):
         f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
         "(medians)")
 
+    say("phase 9: the spin-up and the coupled options")
+    opts = spinup_options_phase()
+    for key in ("tracer", "convect", "cg"):
+        opts[key].pop("per_call_fn", None)
+        say_kernel("earth accel", opts[key])
+    opts["brine_convect"].pop("per_call_fn", None)
+    say_kernel("earth brine", opts["brine_convect"])
+    say(f"  accel {ACCEL:g} segment: eager {opts['accel']['eager_ms']:.1f} "
+        f"ms, replayed {opts['accel']['replay_ms']:.1f} ms; spin-up year "
+        f"{opts['year']['year_s']:.1f} s "
+        f"({86400.0 / opts['year']['year_s']:.0f} simulated years a day)")
+    for name, r in opts["options"].items():
+        say(f"  {name}: eager {r['eager_ms']:.1f} ms, replayed "
+            f"{r['replay_ms']:.1f} ms, {r['graph_nodes']} graph nodes, "
+            f"captures {r['capture_s']:.2f} s, instantiations "
+            f"{r['instantiate_s']:.2f} s")
+
     # All profiler sessions come last: on the card, a torch.profiler
     # session taken after an earlier session and ~1e5 eager launches in
     # between recorded no device activity at all (PyTorch 2.11).
-    say("phase 9: torch.profiler counts")
+    say("phase 10: torch.profiler counts")
     checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
                ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
                ("nt=41", k_convect41))
@@ -2210,7 +2606,18 @@ def main(argv):
                    "earth_run_year_by_replays": earth["year_counts"][k],
                    "earth_bgc_eager_per_segment": bgc["eager_counts"][k],
                    "earth_bgc_run_per_segment": bgc["run_counts"][k],
-                   "earth_bgc_month_by_replays": bgc["month_counts"][k]}
+                   "earth_bgc_month_by_replays": bgc["month_counts"][k],
+                   "earth_accel_eager_per_segment":
+                       opts["accel"]["eager_counts"][k],
+                   "earth_accel_run_per_segment":
+                       opts["accel"]["run_counts"][k],
+                   "spinup_year_counter": opts["year"]["launches"][k],
+                   **{f"earth_{o}_eager_per_segment":
+                      opts["options"][o]["eager_counts"][k]
+                      for o in EARTH_OPTIONS},
+                   **{f"earth_{o}_run_per_segment":
+                      opts["options"][o]["run_counts"][k]
+                      for o in EARTH_OPTIONS}}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -2256,6 +2663,19 @@ def main(argv):
             "bound_by", "library_ms")}
         if "iters" in kb:
             entry["earth_bgc"]["iters"] = kb["iters"]
+        ka = opts[{"fct_tracer_step": "tracer",
+                   "apply_region_means": "convect",
+                   "congrad": "cg"}[k["name"]]]
+        entry["earth_accel"] = {key: ka[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        if "iters" in ka:
+            entry["earth_accel"]["iters"] = ka["iters"]
+        if k["name"] == "apply_region_means":
+            kbr = opts["brine_convect"]
+            entry["earth_brine"] = {key: kbr[key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
         kernels.append(entry)
     say(f"steps: nt=2 eager {statistics.median(step_ms):.3f} ms, replayed "
         f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "

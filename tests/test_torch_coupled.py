@@ -13,7 +13,7 @@ From ``earth_accept/restart.npz`` (year 1060, the start of
   the means that pass the state through a threshold (named below);
 - a restart written by the port reads back through
   ``uvic_tpu.io.restart`` bitwise, and the other way round;
-- the options the port does not implement raise.
+- the ocean options the port does not implement raise.
 
 The EMBM solves run to convergence in both packages (``solver_tol``
 1e-13, 1000 trips): with the configuration's own float64 settings the
@@ -224,21 +224,22 @@ def test_tsi_writer_rows(runs, tmp_path):
     assert len(lines) == 3 and lines[1].startswith("381610.0000,")
 
 
-@pytest.mark.parametrize("option", ["cpts", "no_ice", "no_evp", "freedrift",
-                                    "convect_brine"])
+@pytest.mark.parametrize("option", ["shortwave", "neptune", "eb",
+                                    "tracer_advection", "barotropic"])
 def test_unported_options_raise(option):
+    """The coupled model refuses the ocean options the port does not
+    implement yet (``models/ocean/model.py:_check_supported``); the
+    coupled ice options and brine convection all run
+    (``test_torch_coupled_options.py``,
+    ``test_torch_coupled_ice_options.py``)."""
     cfg = ModelConfig()
-    changes = dict(
-        cpts=dict(ice=dataclasses.replace(cfg.ice, cpts=5)),
-        no_ice=dict(ice=dataclasses.replace(cfg.ice, enabled=False)),
-        no_evp=dict(ice=dataclasses.replace(cfg.ice, evp=False)),
-        freedrift=dict(ice=dataclasses.replace(cfg.ice,
-                                               ice_ocn_stress="freedrift")),
-        convect_brine=dict(ocean=dataclasses.replace(cfg.ocean,
-                                                     convect_brine=True)),
-    )
-    with pytest.raises(NotImplementedError):
-        CoupledModel(cfg.replace(**changes[option]), device="cpu")
+    value = dict(shortwave=True, neptune=True, eb=True,
+                 tracer_advection="upstream",
+                 barotropic="surface_pressure")[option]
+    cfg = cfg.replace(ocean=dataclasses.replace(cfg.ocean,
+                                                **{option: value}))
+    with pytest.raises(NotImplementedError, match=option):
+        CoupledModel(cfg, device="cpu")
 
 
 def test_coupled_model_needs_a_card_unless_asked(monkeypatch):

@@ -43,7 +43,9 @@ print(len(sys.argv) - 1)
 def test_every_module_imports_without_jax():
     assert "uvic_tpu_torch.models.bgc.mobi" in MODULES
     assert {"uvic_tpu_torch.models.sed.porewater",
-            "uvic_tpu_torch.models.sed.sediment"} <= set(MODULES)
+            "uvic_tpu_torch.models.sed.sediment",
+            "uvic_tpu_torch.models.ice.cpts", "uvic_tpu_torch.diag.energy",
+            "uvic_tpu_torch.spinup"} <= set(MODULES)
     out = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *MODULES], cwd=ROOT,
         capture_output=True, text=True, timeout=300)

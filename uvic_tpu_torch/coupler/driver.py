@@ -48,12 +48,15 @@ is set.  ``run`` captures the graphs again when the structure changes.
 
 The sediments (``sed.enabled``: the pore-water columns of
 ``models/sed/porewater.py``, or the legacy interfacial closure of
-``models/sed/sediment.py``) are part of the state, in the workspace
-under the restart's keys (``sed/calgg``, ...).
-
-Not ported (``NotImplementedError`` at construction): ``cpts > 0``,
-the sea ice off or without EVP dynamics, the free-drift ice-ocean
-stress and ``convect_brine``.
+``models/sed/sediment.py``) and the multi-category sea ice (``ice.cpts``
+> 0: ``models/ice/cpts.py``) are part of the state, in the workspace
+under the restart's keys (``sed/calgg``, ``cpts/E``, ...).  The ice
+options of the reference run here too: the sea ice off, the ice without
+EVP dynamics (no advection, no ice stress on the ocean), the free-drift
+ice-ocean stress (the EVP internal stress divergence, capped by
+``ice_ocn_stress_cap`` when it is > 0) and O_convect_brine (the ice's
+brine masses accumulated a segment, ``acc/cbf`` and ``acc/cba``, handed
+to the ocean's brine convection through the forcing).
 """
 
 from __future__ import annotations
@@ -71,12 +74,14 @@ from ..config import ModelConfig
 from ..constants import EPSLN, OMEGA, RADIAN
 from ..core.state import OceanState
 from ..io.forcing import TransientForcing, sulphate_pattern
-from ..ops.stencil import DN, E, N
+from ..ops.stencil import DN, E, N, S, W
 from ..models.embm import constants as C
 from ..models.embm.insolation import daily_insolation
 from ..models.embm.model import AtmState, EmbmModel
 from ..models.embm.rivers import RiverModel
 from ..models.embm.winds import WindFeedback
+from ..models.ice import cpts as cpts_mod
+from ..models.ice.cpts import CPTS_FIELDS, CptsState, init_cpts_state
 from ..models.ice.evp import COSTH, DRAGW_RHO, SINTH, evp_dynamics, evp_xymin
 from ..models.ice.thermo import (IceState, freezing_point, ice_advection,
                           ice_thermodynamics, init_ice_state)
@@ -119,6 +124,8 @@ OTAV_NAMES = ("temp", "salt", "u", "v", "w", "rho", "adv_fe_temp",
               "dif_fb_temp", "psi")
 FORCING_NAMES = ("smf", "stf", "swr", "aice", "hice", "hsno", "relyr",
                  "btf")
+# the brine accumulators and forcing fields of O_convect_brine
+BRINE_NAMES = ("cbf", "cba")
 # the sediment state's class and fields by kind (host["sed"])
 SED_KINDS = {"porewater": (PoreWaterState, PW_FIELDS),
              "legacy": (SedState, SED_FIELDS)}
@@ -131,6 +138,7 @@ class CoupledState:
     ice: IceState
     land: Any = None       # LandState when cfg.land.enabled
     sed: Any = None        # PoreWaterState or SedState when cfg.sed.enabled
+    cpts: Any = None       # CptsState when cfg.ice.cpts > 0
 
 
 def _chem(*xs):
@@ -152,33 +160,27 @@ def host_of(state: CoupledState) -> dict:
     """The host side of a segment: the counters and the optional
     components present."""
     return dict(itt=state.ocean.itt, nats=state.atm.nats,
-                land=state.land is not None, sed=sed_kind(state.sed))
-
-
-def _check_supported(cfg: ModelConfig):
-    """Reject the coupled options outside the ported slice."""
-    unsupported = {
-        "ice.cpts": cfg.ice.cpts > 0,
-        "ice.enabled": not cfg.ice.enabled,
-        "ice.evp": not cfg.ice.evp,
-        "ice.ice_ocn_stress": cfg.ice.ice_ocn_stress != "draglaw",
-        "ocean.convect_brine": cfg.ocean.convect_brine,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"coupled options not ported to uvic_tpu_torch yet: {bad}")
+                land=state.land is not None, sed=sed_kind(state.sed),
+                cpts=state.cpts is not None)
 
 
 class CoupledModel:
     def __init__(self, cfg: ModelConfig | None = None,
                  topo_kind: str = "world", kmt=None, device=None):
         cfg = cfg or ModelConfig()
-        _check_supported(cfg)
         # checks.F + chkcpl: fatal inconsistencies raise, the
         # adjust-and-warn rules are kept for the caller and the logs
         self.config_warnings = validate(cfg)
+        if cfg.ocean.convect_brine and (cfg.ice.cpts > 0
+                                        or not cfg.ice.enabled):
+            raise ValueError("O_convect_brine requires the 0-layer ice "
+                             "model (cpts carries its own categories)")
         self.cfg = cfg
+        # the segment's accumulators and ocean forcing fields: with
+        # O_convect_brine (and the ice on) the brine masses and fractions
+        brine = cfg.ocean.convect_brine and cfg.ice.enabled
+        self.acc_names = ACC_NAMES + (BRINE_NAMES if brine else ())
+        self.forcing_names = FORCING_NAMES + (BRINE_NAMES if brine else ())
         self.device = device = resolve_device(device)
         self._topo_kind = topo_kind
         self.ocean = make_ocean(cfg, topo_kind=topo_kind, kmt=kmt,
@@ -274,7 +276,7 @@ class CoupledModel:
         # ice-velocity high-latitude zonal filter (filuvice, ice.F) and
         # the per-cell advective-CFL speed cap (IceConfig.cfl_cap)
         self.filt_uvice = None
-        if cfg.ocean.fourfil:
+        if cfg.ocean.fourfil and cfg.ice.enabled and cfg.ice.evp:
             from ..ops.filters import build_hlat_filter
             self.filt_uvice = build_hlat_filter(
                 cfg.ocean.hlat_filter, (topo.kmu > 0).astype(np.float64),
@@ -286,6 +288,12 @@ class CoupledModel:
         self.uice_cap = tn(0.4 * dx_u / cfg.embm.dtatm)
         self.vice_cap = tn(0.4 * dy_u / cfg.embm.dtatm)
         self.xyminevp = evp_xymin(grid.cst, grid.dxt, grid.dyt)
+
+        # multi-category ice (cpts.F): the category bounds and the layer
+        # salinity profile
+        if cfg.ice.cpts > 0:
+            self._cpts_hstar = tn(cpts_mod.HSTAR[cfg.ice.cpts])
+            self._cpts_saltz = tn(cpts_mod.salinity_profile(cfg.ice.nlay))
 
         self.last_acc = None
         self.last_forcing = None
@@ -340,8 +348,13 @@ class CoupledModel:
             init = (init_porewater if self.cfg.sed.porewater
                     else init_sed_state)
             sed = init(grid.jmt, grid.imt, self.dtype, self.device)
+        cpts = None
+        if self.cfg.ice.cpts > 0:
+            cpts = init_cpts_state(self.cfg.ice.cpts, self.cfg.ice.nlay,
+                                   grid.jmt, grid.imt, self.dtype,
+                                   self.device)
         return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land,
-                            sed=sed)
+                            sed=sed, cpts=cpts)
 
     def _default_ocean_ic(self):
         g = self.grid
@@ -442,17 +455,19 @@ class CoupledModel:
     # ------------------------------------------------------------------
     def _atm_ice_step_impl(self, atm: AtmState, ice: IceState, sst, frzpt,
                            uocn, vocn, anthro, solins=None, land_gc=None,
-                           wind_pkg=None, sulph=None, landice=None, *,
-                           mixing: bool):
+                           wind_pkg=None, sulph=None, landice=None,
+                           cpts_st=None, *, mixing: bool):
         """One atmosphere step with the sea ice inside (embm.F:39-95).
         solins: seasonal TOA insolation (else the annual mean); land_gc:
         the land model's canopy conductance [cm/s] from its last step;
         wind_pkg: (winds, wspd, taux, tauy) of the anomalous-wind
         feedback; sulph, landice: the transient sulphate field and the
-        (hicel, aicel) ice sheets.  Returns (new atm, new ice, flux
-        increments for the coupler)."""
+        (hicel, aicel) ice sheets; cpts_st: the thickness distribution
+        (``ice.cpts`` > 0).  Returns (new atm, new ice, flux increments
+        for the coupler, new thickness distribution)."""
         embm = self.embm
         cfg = self.cfg.embm
+        icfg = self.cfg.ice
         dts = cfg.dtatm if mixing else 2.0 * cfg.dtatm
         at_old = atm.at if mixing else atm.atm1
         if wind_pkg is None:
@@ -471,35 +486,80 @@ class CoupledModel:
 
         # ---- sea ice (ice.F): dynamics, advection, thermodynamics ----
         g = self.ocean.g
-        with record_function("evp_dynamics"):
-            uice, vice, sig_n, _, _ = evp_dynamics(
-                ice.uice[0], ice.uice[1], ice.hice, ice.aice, embm.tmsk,
-                self.umsk, self.fcor_u, taux_w, tauy_w, uocn, vocn, g,
-                cfg.dtatm, self.cfg.ice.ndte, embm.cyclic, sig_in=ice.sig,
-                xyminevp=self.xyminevp)
-        if self.filt_uvice is not None:
-            uice = self.filt_uvice(uice)
-            vice = self.filt_uvice(vice)
-        if self.cfg.ice.cfl_cap:
-            # the cap protects the advection only: sig above is from the
-            # unclamped velocities
-            uice = torch.minimum(torch.maximum(uice, -self.uice_cap),
-                                 self.uice_cap)
-            vice = torch.minimum(torch.maximum(vice, -self.vice_cap),
-                                 self.vice_cap)
-        niats = self.cfg.ice.niats
-        hice, aice, hsno = (
-            ice_advection(f, uice, vice, g, dts, niats, embm.cyclic)
-            for f in (ice.hice, ice.aice, ice.hsno))
-        ice = ice.replace(hice=torch.clamp(hice, min=0.0),
-                          aice=torch.clamp(aice, 0.0, 1.0),
-                          hsno=torch.clamp(hsno, min=0.0),
-                          uice=torch.stack([uice, vice]), sig=sig_n)
-        ice, flx, oadj = ice_thermodynamics(
-            ice, atm.at[0], atm.at[1], fl["rh"], sst, frzpt, solins_a,
-            embm.aca, wspd_a, embm.elev, embm.tmsk, fl["dnswr"],
-            fl["uplwr"], fl["upsens"], fl["upltnt"], fl["evap"], dts,
-            float(self.grid.zw[0]), aicel=aicel)
+        use_cpts = icfg.cpts > 0 and cpts_st is not None
+        xint = yint = None
+        if icfg.enabled:
+            if icfg.evp:
+                with record_function("evp_dynamics"):
+                    uice, vice, sig_n, xint, yint = evp_dynamics(
+                        ice.uice[0], ice.uice[1], ice.hice, ice.aice,
+                        embm.tmsk, self.umsk, self.fcor_u, taux_w, tauy_w,
+                        uocn, vocn, g, cfg.dtatm, icfg.ndte, embm.cyclic,
+                        sig_in=ice.sig, xyminevp=self.xyminevp)
+                if self.filt_uvice is not None:
+                    uice = self.filt_uvice(uice)
+                    vice = self.filt_uvice(vice)
+                if icfg.cfl_cap:
+                    # the cap protects the advection only: sig above is
+                    # from the unclamped velocities
+                    uice = torch.minimum(torch.maximum(uice, -self.uice_cap),
+                                         self.uice_cap)
+                    vice = torch.minimum(torch.maximum(vice, -self.vice_cap),
+                                         self.vice_cap)
+                if use_cpts:
+                    # advect the whole thickness distribution, ridge under
+                    # convergence, re-bin (adv_ridge_cpts, cpts.F:579-675)
+                    cpts_st = cpts_mod.cpts_advect(
+                        cpts_st, uice, vice, g, dts, icfg.niats, embm.cyclic)
+                    ue = 0.5 * (uice + S(uice))
+                    vn = 0.5 * (vice + W(vice))
+                    vnc = vn * g.csu[:, None]
+                    divu = g.cstr[:, None] * (
+                        (ue - W(ue)) * 2.0 * g.dxt2r[None, :]
+                        + (vnc - S(vnc)) * 2.0 * g.dyt2r[:, None])
+                    cpts_st = cpts_mod.ridge(cpts_st, divu, dts,
+                                             self._cpts_hstar)
+                    cpts_st = cpts_mod.rebin(cpts_st, self._cpts_hstar)
+                    hice, aice, hsno, _ = cpts_mod.aggregate(cpts_st)
+                else:
+                    hice, aice, hsno = (
+                        ice_advection(f, uice, vice, g, dts, icfg.niats,
+                                      embm.cyclic)
+                        for f in (ice.hice, ice.aice, ice.hsno))
+                ice = ice.replace(hice=torch.clamp(hice, min=0.0),
+                                  aice=torch.clamp(aice, 0.0, 1.0),
+                                  hsno=torch.clamp(hsno, min=0.0),
+                                  uice=torch.stack([uice, vice]), sig=sig_n)
+            ice, flx, oadj = ice_thermodynamics(
+                ice, atm.at[0], atm.at[1], fl["rh"], sst, frzpt, solins_a,
+                embm.aca, wspd_a, embm.elev, embm.tmsk, fl["dnswr"],
+                fl["uplwr"], fl["upsens"], fl["upltnt"], fl["evap"], dts,
+                float(self.grid.zw[0]), aicel=aicel)
+            if use_cpts:
+                # the multi-category thermodynamics over ocean cells takes
+                # the place of the 0-layer result; the land-snow branch
+                # stays from therm.F
+                tm = embm.tmsk
+                cpts_st, cflx, cadj, _ = cpts_mod.cpts_thermo(
+                    cpts_st, atm.at[0], atm.at[1], sst, frzpt, solins_a,
+                    embm.aca, wspd_a, tm, dts, self._cpts_saltz,
+                    self._cpts_hstar, fl["dnswr"], fl["uplwr"],
+                    fl["upsens"], fl["upltnt"], fl["evap"])
+                cpts_st = cpts_mod.rebin(cpts_st, self._cpts_hstar)
+                flx = {k: tm * cflx[k] + (1.0 - tm) * flx[k] for k in cflx}
+                oadj = {k: tm * cadj[k] + (1.0 - tm) * oadj[k]
+                        for k in ("heat", "freshwater")}
+                hice_c, aice_c, hsno_c, tice_c = cpts_mod.aggregate(cpts_st)
+                ice = ice.replace(
+                    hice=tm * hice_c + (1.0 - tm) * ice.hice,
+                    aice=tm * torch.clamp(aice_c, 0.0, 1.0)
+                    + (1.0 - tm) * ice.aice,
+                    hsno=tm * hsno_c + (1.0 - tm) * ice.hsno,
+                    tice=tm * tice_c + (1.0 - tm) * ice.tice)
+        else:
+            flx = fl
+            oadj = dict(heat=torch.zeros_like(sst),
+                        freshwater=torch.zeros_like(sst))
         dnswr, uplwr = flx["dnswr"], flx["uplwr"]
         upsens, upltnt = flx["upsens"], flx["upltnt"]
         evap = flx["evap"]
@@ -516,9 +576,17 @@ class CoupledModel:
 
         # snowfall accumulates on sea ice / land snow (fluxes.F:363-420):
         # over the ocean only the ice-covered fraction holds snow
-        psno = torch.where(ice.hsno < 1000.0, psno, 0.0)
-        psno = psno * torch.where(embm.tmsk > 0, ice.aice, 1.0)
-        ice = ice.replace(hsno=ice.hsno + dts / C.RHOSNO * psno)
+        if icfg.enabled:
+            fc = dts / C.RHOSNO
+            psno = torch.where(ice.hsno < 1000.0, psno, 0.0)
+            psno = psno * torch.where(embm.tmsk > 0, ice.aice, 1.0)
+            ice = ice.replace(hsno=ice.hsno + fc * psno)
+            if use_cpts:
+                # snowfall over the categories by area fraction
+                atot = torch.clamp(cpts_st.A.sum(0), min=1e-10)
+                cpts_st = cpts_st.replace(
+                    hseff=cpts_st.hseff + fc * psno * embm.tmsk
+                    * cpts_st.A / atot)
 
         # ---- temperature transport -----------------------------------
         forc_t = embm.temperature_forcing(dts, solins_a, dnswr,
@@ -537,20 +605,35 @@ class CoupledModel:
         # ---- flux accumulation for the coupler (sum_flux) ------------
         ocean_msk = embm.tmsk
         disch = self.rivers.discharge(runoff * embm.lmsk)
-        # ocean-surface stress: wind stress, and under the ice the
-        # reaction to the EVP water drag, with the turning angle, blended
-        # by the ice fraction at U points (ice_ocn_stress "draglaw")
-        ui, vi = ice.uice[0], ice.uice[1]
-        dux = ui - uocn
-        dvy = vi - vocn
-        vrel = DRAGW_RHO * torch.sqrt(dux ** 2 + dvy ** 2)
-        sinth_s = torch.sign(self.fcor_u) * SINTH
-        tio_x = vrel * (COSTH * dux - sinth_s * dvy)
-        tio_y = vrel * (COSTH * dvy + sinth_s * dux)
-        a = ice.aice
-        aice_u = 0.25 * (a + N(a) + E(a) + N(E(a)))
-        taux_o = taux_w * (1.0 - aice_u) + (tio_x * aice_u) * self.umsk
-        tauy_o = tauy_w * (1.0 - aice_u) + (tio_y * aice_u) * self.umsk
+        # ocean-surface stress: the wind stress, and where the EVP
+        # dynamics ran the ice's share (IceConfig.ice_ocn_stress)
+        taux_o, tauy_o = taux_w, tauy_w
+        if xint is not None and icfg.ice_ocn_stress == "draglaw":
+            # the reaction to the EVP water drag, with the turning
+            # angle, blended by the ice fraction at U points
+            ui, vi = ice.uice[0], ice.uice[1]
+            dux = ui - uocn
+            dvy = vi - vocn
+            vrel = DRAGW_RHO * torch.sqrt(dux ** 2 + dvy ** 2)
+            sinth_s = torch.sign(self.fcor_u) * SINTH
+            tio_x = vrel * (COSTH * dux - sinth_s * dvy)
+            tio_y = vrel * (COSTH * dvy + sinth_s * dux)
+            a = ice.aice
+            aice_u = 0.25 * (a + N(a) + E(a) + N(E(a)))
+            taux_o = taux_w * (1.0 - aice_u) + (tio_x * aice_u) * self.umsk
+            tauy_o = tauy_w * (1.0 - aice_u) + (tio_y * aice_u) * self.umsk
+        elif xint is not None:
+            # free drift: the ice's internal stress divergence passes to
+            # the ocean, its magnitude capped when ice_ocn_stress_cap > 0
+            cap = icfg.ice_ocn_stress_cap
+            if cap > 0.0:
+                mag = torch.sqrt(xint ** 2 + yint ** 2)
+                scl = torch.clamp(cap / torch.clamp(mag, min=1e-12),
+                                  max=1.0)
+                xint = xint * scl
+                yint = yint * scl
+            taux_o = taux_w + xint * self.umsk
+            tauy_o = tauy_w + yint * self.umsk
         # planetary absorbed shortwave (global_sums.F TOA balance)
         asw = (solins_a * embm.aca * C.SCATTER * (1.0 + C.PASS)
                + dnswr * (1.0 - C.SCATTER))
@@ -564,7 +647,13 @@ class CoupledModel:
             precip=dts * precip, psno=dts * psno, evap=dts * evap,
             runoff=dts * runoff, uplwr=dts * uplwr, upsens=dts * upsens,
             upltnt=dts * upltnt, time=dts)
-        return new_atm, ice, acc
+        if "cbf" in self.acc_names:
+            # therm.F:440-460 cbf/cba accumulators (the 0-layer ice's)
+            acc["cbf"] = torch.stack([oadj["brine_open"],
+                                      oadj["brine_ice"]])
+            acc["cba"] = dts * torch.stack([oadj["brine_ao"],
+                                            oadj["brine_ai"]])
+        return new_atm, ice, acc, cpts_st
 
     # ------------------------------------------------------------------
     def gosbc(self, acc, state: CoupledState, swr_mean, sed_flux=None,
@@ -588,7 +677,17 @@ class CoupledModel:
         fs = -SOCN / atatm             # freshwater -> virtual salt flux
         tmsk = self.embm.tmsk
         hflx = fh * acc["heat"] * tmsk
-        sflx = fs * acc["freshwater"] * tmsk
+        cbf_salt = cba_w = None
+        if "cbf" in acc:
+            # O_convect_brine: the ice growth/melt part of the virtual
+            # salt flux goes through the per-category convection
+            # (convect_brine.F), not the surface row
+            mass = acc["cbf"]
+            sflx = fs * (acc["freshwater"] - mass.sum(0)) * tmsk
+            cbf_salt = fs * mass * tmsk[None]
+            cba_w = torch.clamp(acc["cba"] / atatm, 0.0, 1.0) * tmsk[None]
+        else:
+            sflx = fs * acc["freshwater"] * tmsk
         smf = torch.stack([acc["taux"], acc["tauy"]]) / atatm / 1.035
         idx = self.ocean.tracer_index
         nt = self.ocean.nt
@@ -630,7 +729,7 @@ class CoupledModel:
                 btf[idx.ialk] = -sed_flux["alk"]
         return make_forcing(smf, stf, swr=swr_mean, aice=state.ice.aice,
                             hice=state.ice.hice, hsno=state.ice.hsno,
-                            relyr=relyr, btf=btf)
+                            relyr=relyr, btf=btf, cbf=cbf_salt, cba=cba_w)
 
     def sediment_step(self, state: CoupledState, co2ccn):
         """The sediments' step on the segment's bottom water (sed.F, once
@@ -723,10 +822,16 @@ class CoupledModel:
         if state.land is not None:
             out["land_gc"] = state.land.gc * 100.0      # m/s -> cm/s
         z2 = torch.zeros_like(sst)
-        for k in ACC_NAMES:
-            out["acc/" + k] = (torch.zeros((), dtype=sst.dtype,
-                                           device=sst.device)
-                               if k == "time" else z2.clone())
+        for k in self.acc_names:
+            if k == "time":
+                out["acc/" + k] = torch.zeros((), dtype=sst.dtype,
+                                              device=sst.device)
+            elif k in BRINE_NAMES:
+                out["acc/" + k] = torch.zeros((2,) + sst.shape,
+                                              dtype=sst.dtype,
+                                              device=sst.device)
+            else:
+                out["acc/" + k] = z2.clone()
         for k in ATAV_NAMES:
             out["atav/" + k] = z2.clone()
         return out
@@ -740,11 +845,11 @@ class CoupledModel:
             wind_pkg = tuple(ws["wind/" + k]
                              for k in ("winds", "wspd", "taux", "tauy"))
         landice = (ws["hicel"], ws["aicel"]) if "hicel" in ws else None
-        atm, ice, a = self._atm_ice_step_impl(
+        atm, ice, a, cpts = self._atm_ice_step_impl(
             state.atm, state.ice, ws["sst"], ws["frzpt"], ws["uocn"],
             ws["vocn"], ws["anthro"], ws["solins"], ws.get("land_gc"),
-            wind_pkg, ws.get("sulph"), landice, mixing=mixing)
-        out = {"acc/" + k: ws["acc/" + k] + a[k] for k in ACC_NAMES}
+            wind_pkg, ws.get("sulph"), landice, state.cpts, mixing=mixing)
+        out = {"acc/" + k: ws["acc/" + k] + a[k] for k in self.acc_names}
         tav = dict(sat=atm.at[0], shum=atm.at[1], hice=ice.hice,
                    aice=ice.aice, hsno=ice.hsno, soilm=atm.soilm,
                    tice=ice.tice, uice=ice.uice[0], vice=ice.uice[1])
@@ -752,6 +857,8 @@ class CoupledModel:
                     for k, v in tav.items()})
         out.update(pack_atm(atm))
         out.update(pack_ice(ice))
+        if cpts is not None:
+            out.update(pack_cpts(cpts))
         out["trips_q"], out["trips_t"] = self.embm.last_trips
         host["nats"] = atm.nats
         return out
@@ -759,7 +866,7 @@ class CoupledModel:
     def stage_mid(self, ws, host):
         """Segment means of the atmosphere, the land update and gosbc."""
         state = unpack_state(ws, host)
-        acc = {k: ws["acc/" + k] for k in ACC_NAMES}
+        acc = {k: ws["acc/" + k] for k in self.acc_names}
         atm = state.atm
         out = {"tavg/" + k: ws["atav/" + k] / self.ntspas
                for k in ATAV_NAMES}
@@ -807,7 +914,7 @@ class CoupledModel:
                              cfcccn=ws.get("cfcccn"),
                              dc14ccn=ws["dc14ccn"])
         out.update({"forcing/" + k: getattr(forcing, k)
-                    for k in FORCING_NAMES})
+                    for k in self.forcing_names})
         z3 = torch.zeros_like(state.ocean.t[0])
         for k in OTAV_NAMES:
             out["otav/" + k] = (torch.zeros_like(state.ocean.psi0)
@@ -821,7 +928,7 @@ class CoupledModel:
         time-mean accumulation (tracer.F:420-443, mom_tavg.F)."""
         state = unpack_state(ws, host)
         forcing = make_forcing(**{k: ws["forcing/" + k]
-                                  for k in FORCING_NAMES})
+                                  for k in self.forcing_names})
         om = self.ocean
         oc = om._step(state.ocean, forcing, leapfrog=leapfrog, scan=True)
         uf = om.full_velocity(oc.u, oc.psi0)
@@ -920,8 +1027,9 @@ class CoupledModel:
 
     # ------------------------------------------------------------------
     def _finish(self, ws, host, logs) -> CoupledState:
-        self.last_acc = {k: ws["acc/" + k] for k in ACC_NAMES}
-        self.last_forcing = {k: ws["forcing/" + k] for k in FORCING_NAMES}
+        self.last_acc = {k: ws["acc/" + k] for k in self.acc_names}
+        self.last_forcing = {k: ws["forcing/" + k]
+                             for k in self.forcing_names}
         self.last_tavg = {k[5:]: v for k, v in ws.items()
                           if k.startswith("tavg/")}
         self.last_nep_kgC_s = ws.get("nep")
@@ -1006,6 +1114,10 @@ def pack_sed(sed) -> dict:
     return {"sed/" + f: getattr(sed, f) for f in fields}
 
 
+def pack_cpts(c: CptsState):
+    return {"cpts/" + f: getattr(c, f) for f in CPTS_FIELDS}
+
+
 def pack_state(state: CoupledState) -> dict:
     ws = {**pack_ocean(state.ocean), **pack_atm(state.atm),
           **pack_ice(state.ice)}
@@ -1013,6 +1125,8 @@ def pack_state(state: CoupledState) -> dict:
         ws.update(pack_land(state.land))
     if state.sed is not None:
         ws.update(pack_sed(state.sed))
+    if state.cpts is not None:
+        ws.update(pack_cpts(state.cpts))
     return ws
 
 
@@ -1029,5 +1143,9 @@ def unpack_state(ws, host) -> CoupledState:
     if host.get("sed") is not None:
         cls, fields = SED_KINDS[host["sed"]]
         sed = cls(**{f: ws["sed/" + f] for f in fields})
-    return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land, sed=sed)
+    cpts = None
+    if host.get("cpts"):
+        cpts = CptsState(**{f: ws["cpts/" + f] for f in CPTS_FIELDS})
+    return CoupledState(ocean=ocean, atm=atm, ice=ice, land=land, sed=sed,
+                        cpts=cpts)
 

@@ -27,9 +27,11 @@ A capture that fails raises: there is no fallback to eager stages.
 from __future__ import annotations
 
 import time
+import weakref
 
 import torch
 
+from ..models.ocean.graphs import capturing
 from ..ops.cg_kernel import congrad_launch
 from ..ops.convection import apply_region_means
 from ..ops.tracer_kernel import fct_tracer_step
@@ -55,7 +57,7 @@ class SegmentGraphs:
     def __init__(self, model, state, inputs):
         from ..cuda import LIBRARY
         LIBRARY.get()                     # build/load before any capture
-        self.model = model
+        self.model = weakref.proxy(model)   # no cycle (graphs.capturing)
         self.inputs = tuple(inputs)
         embm = model.embm
         every = embm.check_every
@@ -82,24 +84,28 @@ class SegmentGraphs:
         self.replays = dict.fromkeys(STAGE_TYPES, 0)
         try:
             embm.check_every = None
-            for key in STAGE_TYPES:
-                graph = torch.cuda.CUDAGraph(keep_graph=True)
-                before = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
-                t0 = time.perf_counter()
-                with torch.cuda.graph(graph):
-                    out = model.stage(key[0], key[1], self.ws, dict(host))
-                    self._write_back(out)
-                torch.cuda.synchronize()
-                self.capture_s[key] = time.perf_counter() - t0
-                self.captured[key] = {k: w.launches - before[k]
-                                      for k, w in KERNEL_WRAPPERS.items()}
-                t0 = time.perf_counter()
-                graph.instantiate()
-                torch.cuda.synchronize()
-                self.instantiate_s[key] = time.perf_counter() - t0
-                self.graphs[key] = graph
+            with capturing():
+                for key in STAGE_TYPES:
+                    self._capture(model, key, host)
         finally:
             embm.check_every = every
+
+    def _capture(self, model, key, host):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            out = model.stage(key[0], key[1], self.ws, dict(host))
+            self._write_back(out)
+        torch.cuda.synchronize()
+        self.capture_s[key] = time.perf_counter() - t0
+        self.captured[key] = {k: w.launches - before[k]
+                              for k, w in KERNEL_WRAPPERS.items()}
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize()
+        self.instantiate_s[key] = time.perf_counter() - t0
+        self.graphs[key] = graph
 
     def _write_back(self, out):
         """Copy a stage's outputs into the workspace buffers.  An output

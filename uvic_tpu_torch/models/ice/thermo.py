@@ -262,15 +262,30 @@ def ice_thermodynamics(ice: IceState, atm_sat, atm_shum, rh, sst, frzpt,
         upltnt=ocean * upltnt_o + (1 - ocean) * upltnt_l2,
         evap=ocean * evap_o + (1 - ocean) * evap,
     )
+    # per-category brine masses for O_convect_brine (therm.F:440-460
+    # cbf/cba accumulators): brine_open, open-water (lead) formation (dho
+    # only where positive: negative dho over ice-free water is melt of
+    # ice that is not there); brine_ice, under-ice growth/melt and
+    # snow-ice changes; [g/cm^2 a step], negative = freshwater removed
+    # (salt rejected); brine_ao/brine_ai the open and ice fractions
+    brine_open = ocean * (-C.RHOICE) * ao * torch.clamp(dho, min=0.0)
+    brine_ice = ocean * (-C.RHOICE * dhflxi - C.RHOSNO * dhflxs) \
+        - brine_open
     ocean_flux_adj = dict(
         heat=ocean * dflux_sat,
         freshwater=ocean * dflux_shum + (1 - ocean) * dflux_shum_land * dts,
+        brine_open=brine_open,
+        brine_ice=brine_ice * ocean,
+        brine_ao=ocean * ao,
+        brine_ai=ocean * ai,
     )
     return new, fluxes, ocean_flux_adj
 
 
 def ice_advection(field, uice, vice, g, dts, niats=1, cyclic=True):
-    """Upstream advection of an ice field on the B-grid (iceadv.F advupb)."""
+    """Upstream advection of an ice field on the B-grid (iceadv.F
+    advupb).  ``field`` is (..., jmt, imt): leading axes (the categories
+    and layers of ``cpts``) advect independently."""
     from ...ops.stencil import E, N, S, W, setbcx
     dt = dts / niats
     dyu_j = g.dyu[:, None]
@@ -286,7 +301,7 @@ def ice_advection(field, uice, vice, g, dts, niats=1, cyclic=True):
         out = t - dt * g.cstr[:, None] * (
             (afe - W(afe)) * g.dxt2r[None, :]
             + (afn * csu_j - S(afn) * S(csu_j)) * g.dyt2r[:, None])
-        z = torch.zeros_like(out[:1])
-        out = torch.cat([z, out[1:-1], z])
+        z = torch.zeros_like(out[..., :1, :])
+        out = torch.cat([z, out[..., 1:-1, :], z], dim=-2)
         out = setbcx(out, cyclic)
     return out

@@ -19,8 +19,11 @@ A capture that fails raises: there is no fallback to eager steps.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import time
+import weakref
 
 import torch
 
@@ -36,6 +39,31 @@ KERNEL_WRAPPERS = {"fct_tracer_step": fct_tracer_step,
                    "congrad": congrad_launch}
 
 
+@contextlib.contextmanager
+def capturing():
+    """Collect garbage first and hold the collector off while graphs are
+    captured.  A CUDA graph destroyed during another graph's capture (the
+    graphs of a dropped model, freed when the collector runs) ends that
+    capture with cudaErrorStreamCaptureInvalidated; the graph classes
+    keep only a weak reference to their model, so that no cycle holds
+    graphs for the collector in the first place."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def forcing_fields(forcing):
+    """The names of the forcing's tensor fields (the brine fields ``cbf``
+    and ``cba`` are None without O_convect_brine)."""
+    return [f.name for f in dataclasses.fields(forcing)
+            if getattr(forcing, f.name) is not None]
+
+
 class StepGraphs:
     """The two captured steps of one model, on static buffers.
 
@@ -48,12 +76,12 @@ class StepGraphs:
     def __init__(self, model, state: OceanState, forcing):
         from ...cuda import LIBRARY
         LIBRARY.get()                     # build/load before any capture
-        self.model = model
+        self.model = weakref.proxy(model)
         self.state = dataclasses.replace(
             state, **{f: getattr(state, f).clone() for f in STATE_FIELDS})
         self.forcing = dataclasses.replace(
-            forcing, **{f.name: getattr(forcing, f.name).clone()
-                        for f in dataclasses.fields(forcing)})
+            forcing, **{f: getattr(forcing, f).clone()
+                        for f in forcing_fields(forcing)})
         self.iters = torch.zeros((), dtype=torch.int32, device=model.device)
 
         # warm up on a side stream (lazy library handles, the kernels'
@@ -68,24 +96,28 @@ class StepGraphs:
 
         self.graphs, self.capture_s, self.instantiate_s = {}, {}, {}
         self.captured = {}
-        for lf in (True, False):
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            before = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph):
-                out = model._step(self.state, self.forcing, leapfrog=lf,
-                                  scan=True)
-                self._write_back(out)
-                self.iters.copy_(model.last_cg_iters)
-            torch.cuda.synchronize()
-            self.capture_s[lf] = time.perf_counter() - t0
-            self.captured[lf] = {k: w.launches - before[k]
-                                 for k, w in KERNEL_WRAPPERS.items()}
-            t0 = time.perf_counter()
-            graph.instantiate()
-            torch.cuda.synchronize()
-            self.instantiate_s[lf] = time.perf_counter() - t0
-            self.graphs[lf] = graph
+        with capturing():
+            for lf in (True, False):
+                self._capture(model, lf)
+
+    def _capture(self, model, lf):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            out = model._step(self.state, self.forcing, leapfrog=lf,
+                              scan=True)
+            self._write_back(out)
+            self.iters.copy_(model.last_cg_iters)
+        torch.cuda.synchronize()
+        self.capture_s[lf] = time.perf_counter() - t0
+        self.captured[lf] = {k: w.launches - before[k]
+                             for k, w in KERNEL_WRAPPERS.items()}
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize()
+        self.instantiate_s[lf] = time.perf_counter() - t0
+        self.graphs[lf] = graph
 
     def _write_back(self, out: OceanState):
         """Copy a step's outputs into the state buffers.  An output that
@@ -111,8 +143,8 @@ class StepGraphs:
         iterations."""
         for f in STATE_FIELDS:
             getattr(self.state, f).copy_(getattr(state, f))
-        for f in dataclasses.fields(forcing):
-            getattr(self.forcing, f.name).copy_(getattr(forcing, f.name))
+        for f in forcing_fields(forcing):
+            getattr(self.forcing, f).copy_(getattr(forcing, f))
         itt = state.itt
         for n in range(nsteps):
             self.graphs[(itt % nmix) != 0].replay()

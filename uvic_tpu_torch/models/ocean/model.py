@@ -35,7 +35,7 @@ from ...config import BarotropicMode, Convection, ModelConfig
 from ...constants import GRAV, RHO0R
 from ...core.state import OceanState, init_ocean_state
 from ...ops.cg_kernel import CGSolver
-from ...ops.convection import convct_full
+from ...ops.convection import convct_brine, convct_full
 from ...ops.eos import dens
 from ...ops.filters import build_hlat_filter
 from ...ops.solvers import IslandIndex
@@ -59,6 +59,8 @@ class SurfaceForcing:
     relyr : 0-d tensor, fractional year for the seasonal declination
     btf : (nt, jmt, imt) bottom tracer fluxes; negative = upward into
           the bottom cell
+    cbf, cba : (2, jmt, imt) brine salt fluxes and area weights of the
+          open-water and the ice category (O_convect_brine), or None
     """
     smf: torch.Tensor
     stf: torch.Tensor
@@ -68,13 +70,15 @@ class SurfaceForcing:
     hsno: torch.Tensor
     relyr: torch.Tensor
     btf: torch.Tensor
+    cbf: torch.Tensor | None = None
+    cba: torch.Tensor | None = None
 
 
 def make_forcing(smf, stf, swr=None, aice=None, hice=None, hsno=None,
-                 relyr=0.0, btf=None):
+                 relyr=0.0, btf=None, cbf=None, cba=None):
     """SurfaceForcing with the reference's defaults for the optional
     fields: swr 2e5, no ice, relyr 0 (a 0-d tensor, so a captured step
-    reads it from its buffer), zero bottom fluxes."""
+    reads it from its buffer), zero bottom fluxes, no brine fluxes."""
     z = torch.zeros_like(smf[0])
     return SurfaceForcing(
         smf=smf, stf=stf,
@@ -83,7 +87,8 @@ def make_forcing(smf, stf, swr=None, aice=None, hice=None, hsno=None,
         hice=z if hice is None else hice,
         hsno=z if hsno is None else hsno,
         relyr=torch.as_tensor(relyr, dtype=smf.dtype, device=smf.device),
-        btf=torch.zeros_like(stf) if btf is None else btf)
+        btf=torch.zeros_like(stf) if btf is None else btf,
+        cbf=cbf, cba=cba)
 
 
 def _check_supported(cfg: ModelConfig):
@@ -94,7 +99,6 @@ def _check_supported(cfg: ModelConfig):
         "fct_variant": o.fct_variant != "dlm1",
         "fct_3d": o.fct_3d,
         "convection": o.convection != Convection.FULL,
-        "convect_brine": o.convect_brine,
         "barotropic": o.barotropic != BarotropicMode.STREAM_FUNCTION,
         "vmix": o.vmix not in ("const", "bryan_lewis"),
         "hmix": o.hmix != "const",
@@ -148,6 +152,7 @@ class OceanModel:
             setattr(bag, name, tn(getattr(params, name)))
         bag.am = cfg.ocean.am
         bag.hr = tn(topo.hr)
+        bag.zt = tn(g.zt)                 # level depths (diag/energy.py)
         bag.grav_rho0r = GRAV * RHO0R
         self.g = bag
 
@@ -389,8 +394,20 @@ class OceanModel:
             self.tracer_consts, t_tau, tm1, vet_t, vnt_t, vbt_t, diff_cbt,
             stf, btf, source, c2dtts * g.dtxcel, self.tmask, self.kmt,
             isow=isow)
-        t_new = convct_full(t_new, self.kmt, self.eos_c, self.eos_to,
-                            self.eos_so, self.dztxcl)
+        if cfg.convect_brine and forcing.cbf is not None:
+            # O_convect_brine: the ice categories' brine fluxes drive
+            # per-category convection (convect_brine.F) in place of the
+            # salt flux at the surface; the interval and dtxcel0 = 1 as
+            # the reference passes them
+            cba0 = torch.clamp(1.0 - forcing.cba.sum(0), min=0.0) \
+                * self.tmask[0]
+            t_new = convct_brine(
+                t_new, forcing.cbf, forcing.cba, cba0, self.kmt,
+                self.eos_c, self.eos_to, self.eos_so, self.dztxcl, c2dtts,
+                float(self.params.grid.zw[0]))
+        else:
+            t_new = convct_full(t_new, self.kmt, self.eos_c, self.eos_to,
+                                self.eos_so, self.dztxcl)
         if self.filt_t is not None:
             t_new = self.filt_t(t_new)
         t_new = setbcx(t_new, self.cyclic)

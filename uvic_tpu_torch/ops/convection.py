@@ -158,6 +158,38 @@ def convct_full(ts, kmt, eos_c, eos_to, eos_so, dztxcl):
     return apply_region_means(ts.contiguous(), mnorm.contiguous(), ocean)
 
 
+def convct_brine(ts, cbf, cba, cba0, kmt, eos_c, eos_to, eos_so, dztxcl,
+                 c2dtts, zw0, dtxcel0=1.0):
+    """Brine-rejection convection (convect_brine.F:1-101,
+    O_convect_brine), as ``uvic_tpu.ops.convection.convct_brine``.
+
+    Under each ice category nc the category's brine salt flux ``cbf[nc]``
+    [salt-unit cm/s] enters the surface level (the reference's
+    density-contrast spreading depth is off, cont=0, convect_brine.F:45),
+    complete convection runs on the perturbed profile, and the result is
+    the area-weighted mean of the convected profiles; the ice-free part
+    ``cba0`` convects unperturbed.  Each of the 1 + ncat convections
+    applies its region means through ``apply_region_means`` (the kernel
+    on the card): three an ocean step with the coupler's two categories.
+
+    ts   : (nt, km, jmt, imt) tracers at tau+1 (before convection)
+    cbf  : (ncat, jmt, imt) per-category brine fluxes (index 0 = open
+           water / lead ice growth)
+    cba  : (ncat, jmt, imt) per-category area weights
+    cba0 : (jmt, imt) ice-free weight; cba0 + sum(cba) = 1
+    zw0  : depth of the bottom of level 1 [cm]
+    """
+    out = cba0[None, None] * convct_full(ts, kmt, eos_c, eos_to, eos_so,
+                                         dztxcl)
+    fac = c2dtts * dtxcel0 / zw0
+    for nc in range(cbf.shape[0]):
+        tsp = ts.clone()
+        tsp[1, 0] = ts[1, 0] + fac * cbf[nc]
+        out = out + cba[nc][None, None] * convct_full(
+            tsp, kmt, eos_c, eos_to, eos_so, dztxcl)
+    return out
+
+
 def convection_extent(ts, kmt, eos_c, eos_to, eos_so, dztxcl, dzt):
     """Diagnostic: (depth_cm, nregions) of convective mixing per column
     (mom_tavg.F O_save_convection rows).
