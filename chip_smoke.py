@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship ocean steps and its coupled earth
-segment on one NVIDIA card.
+"""Drive the PyTorch port's flagship ocean steps, its restoring run and
+its coupled earth segment on one NVIDIA card.
 
     python3 chip_smoke.py                  # the whole check, below
     python3 chip_smoke.py --times          # kernel times only, one JSON line
@@ -147,7 +147,37 @@ Phases (each failure ends the run with a non-zero exit code):
    barotropic CG's trips printed: every field within its limit (5x the
    JAX package's own float32 gap), the barotropic fields
    (CPTS_BAROTROPIC) too unless a solve's trips differ between the two.
-10. torch.profiler, last (a session taken after an earlier one and ~1e5
+10. The ocean-only restoring run: the flagship of ``entry._flagship()``
+   restored toward the seasonal climatology (``io/timeforce.py``).  The
+   three kernels held against their plain versions (phase 2's
+   tolerances) on a restoring step's inputs: phase 2's noise on T and S,
+   the climatology at the first segment's midpoint, so that B1's stf is
+   non-zero in both rows.  Then RESTORING_SEGMENTS segments of
+   RESTORING_SEG_DAYS days (24 steps) through ``OceanModel.run_restoring``,
+   one call a segment with relyr0 accumulated as run_restoring
+   accumulates it: the first call captures the two step graphs (each must
+   hold one launch of each kernel), and over it the wrappers launch only
+   in the capture's warm-up and the captures, and the graphs' replays
+   (``StepGraphs.replays``) times their captured launches make 24 of
+   each kernel; its result must equal run_scan on the same forcing and
+   the same 24 steps taken eagerly (launch counters 24), bitwise; the
+   year keeps the same graphs, launches nothing outside them and
+   replays them 288 times; the second segment under
+   a climatology RESTORING_WARMER K warmer, on the same graphs, must warm
+   the mean SST and equal its eager steps bitwise; each segment's
+   row (``restoring_row``: area-mean SST and SSS, their mean gap to the
+   climatology, volume-mean T and S, psi max and min, the mean CG
+   iterations, nconv) is held against RESTORING_GOLDEN within that
+   segment's limits, with the segment times and the simulated years a day; then one
+   "bcest" segment, finite.  On the year's final state ``Regions.
+   volume_mean`` of T and S, ``XbtStations``, ``cross_section``,
+   ``zonal_mean_sbc`` and ``extract_matrices`` at TMM_SPACING (75 tiles
+   in one tracer step, timed on the card and on the CPU) are held
+   against the same functions on a float64 CPU copy within TOL_TOOLS.
+   Last, ``debug.bisect_segment`` on phase 6's earth model: ok on its
+   restart, and on a copy with the thickest ice cell's hice set to NaN
+   not ok, in phase "atm_ice substep 0".
+11. torch.profiler, last (a session taken after an earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
@@ -163,11 +193,14 @@ counts on each path by the wrappers' counters: over the eager steps,
 and per replayed step type as captured in its graph, and a segment of
 the earth path, eager and replayed, and over the year through Run each
 graph's replays times the launches captured in it, and the same on the
-earth carbon-cycle path, and on the paths of phase 9; `nt41` the phase
+earth carbon-cycle path, and on the paths of phases 9 and 10 (the
+restoring segment eager, and replayed: a segment and the year, each
+graph's counted replays times its captured launches); `nt41` the phase
 2 readings on the MOBI inputs, `earth` the phase 6 readings on the earth
 inputs, `earth_bgc` the phase 8 readings on the earth carbon cycle's
 inputs, `earth_accel` the phase 9 readings on the accelerated inputs,
-`earth_brine` the apply's on the brine path) and the result line
+`earth_brine` the apply's on the brine path, `restoring` the phase 10
+readings on the restoring step's inputs) and the result line
 {"ok": true, "device": {...}}.
 
 With --times the script builds the flagship and the full-MOBI flagship
@@ -285,7 +318,7 @@ CONVECT_SEED = 5
 EARTH_RESTART = "earth_accept/restart.npz"
 EARTH_GOLDEN = "golden/regression/tsi_10yr_earth_r5.csv"
 EARTH_SEGMENTS = 2
-EARTH_BARE = 8
+EARTH_BARE = 4
 EARTH_YEAR = 72
 EARTH_SPLIT = 2
 EARTH_TRANSIENT = 4
@@ -340,7 +373,7 @@ SPINUP_START = "earth_accept"
 SPINUP_GOLDEN = "golden/regression/spinup_earth_year.json"
 EARTH_ACCEL_SEGMENTS = 2
 EARTH_OPTION_SEGMENTS = 2
-EARTH_OPTION_BARE = 4
+EARTH_OPTION_BARE = 2
 EARTH_OPTIONS = {
     "cpts": ("ice", dict(cpts=3)),
     "convect_brine": ("ocean", dict(convect_brine=True)),
@@ -360,6 +393,31 @@ CPTS_GOLDEN = "golden/regression/cpts_small_segments.json"
 # and the fields then differ by up to the solve's tolerance
 # (golden/regression/cpts_small_segments.py --trips).
 CPTS_BAROTROPIC = ("ocean/psi0", "ocean/psi1", "ocean/ptd", "ocean/ptdb")
+# The ocean-only restoring run (phase 10): the flagship from
+# entry._flagship() restored toward the seasonal climatology of
+# io/timeforce.py (OceanModel.run_restoring): RESTORING_SEGMENTS segments
+# of RESTORING_SEG_DAYS days (24 ocean steps each at dtts 108,000 s), the
+# reference rows of that year (golden/regression/restoring_year.py: the
+# JAX package's float64 rows, each key's limit 5x its largest gap over
+# five float32 runs, four from a state moved by one float32 ulp, at
+# least the key's floor there), the warmer climatology that shows the
+# graphs read each segment's fluxes, and the tooling's checks on the
+# year's final state against a float64 CPU copy: the spacing of the
+# transport-matrix tiles (100 physical columns, a multiple of 5; 75
+# tiles) and each check's limit on max |card - float64|, relative to the
+# largest magnitude of the field reduced or sampled (regions, stations,
+# zonal means, sections) or of the float64 matrices (tmm): float32
+# round-off over the few dozen operations of a tracer step, an invtri or
+# a reduction is ~1e-6 of it; sections are gathers of the same values,
+# exact.
+RESTORING_SEGMENTS = 12
+RESTORING_SEG_DAYS = 30.0
+RESTORING_YRLEN = 365.0
+RESTORING_GOLDEN = "golden/regression/restoring_year.json"
+RESTORING_WARMER = 1.0          # K added to the climatology's SST
+TMM_SPACING = (3, 5, 5)
+TOL_TOOLS = dict(regions=1e-5, xbt=1e-5, section=0.0, zonal=1e-5,
+                 tmm_exp=1e-5, tmm_imp=1e-5)
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -416,6 +474,95 @@ def port_bgc_row(m, weights, names, state):
                    m.last_forcing["stf"].double().cpu().numpy(),
                    m.last_forcing["btf"].double().cpu().numpy(), sed,
                    state.ocean.nconv)
+
+
+def restoring_weights(grid, tmask):
+    """(ocean cell volumes, ocean surface areas), both without the
+    cyclic columns, for ``restoring_row``, NumPy float64, from either
+    package's grid and T mask."""
+    import numpy as np
+    tmask = np.asarray(tmask, np.float64)
+    area = (np.asarray(grid.cst)[:, None] * np.asarray(grid.dyt)[:, None]
+            * np.asarray(grid.dxt)[None, :])
+    area[:, 0] = 0.0
+    area[:, -1] = 0.0
+    return np.asarray(grid.dzt)[:, None, None] * area[None] * tmask, \
+        area * tmask[0]
+
+
+def restoring_row(weights, t, psi0, clim_sst, clim_sss, cg_iters, nconv):
+    """One segment's row of the restoring year (NumPy float64): the
+    area-mean SST and SSS [degC, psu], the area-mean absolute gap of each
+    to the climatology at the segment's midpoint, the volume-mean T and S,
+    the streamfunction's max and min [Sv], the mean CG iterations of the
+    segment's steps, and nconv."""
+    import numpy as np
+    dvol, area = weights
+    t, psi0, clim_sst, clim_sss = (np.asarray(x, np.float64) for x in (
+        t, psi0, clim_sst, clim_sss))
+
+    def amean(x):
+        return float((x * area).sum() / area.sum())
+
+    def vmean(x):
+        return float((x * dvol).sum() / dvol.sum())
+
+    return dict(
+        sst=amean(t[0, 0]), sss=amean(t[1, 0]) * 1000.0 + 35.0,
+        sst_gap=amean(np.abs(t[0, 0] - clim_sst)),
+        sss_gap=amean(np.abs(t[1, 0] - clim_sss)) * 1000.0,
+        tbar=vmean(t[0]), sbar=vmean(t[1]) * 1000.0 + 35.0,
+        psi_max=float(psi0.max()) / 1e12, psi_min=float(psi0.min()) / 1e12,
+        cg_iters=float(np.mean(np.asarray(cg_iters, np.float64))),
+        nconv=int(nconv))
+
+
+def restoring_gaps(rows, golden):
+    """Each key's largest share of its limit over ``rows`` against the
+    reference year ``golden`` (the JSON, a limit of each key for each
+    segment) as {key: (share, gap, segment)}, and the (segment, key, gap,
+    limit) out of limits, nconv unequal among them."""
+    worst, failed = {}, []
+    for n, (row, ref, limits) in enumerate(zip(rows, golden["rows"],
+                                                golden["limit"])):
+        if row["nconv"] != ref["nconv"]:
+            failed.append((n + 1, "nconv", row["nconv"], ref["nconv"]))
+        for key, limit in limits.items():
+            gap = abs(row[key] - ref[key])
+            if gap / limit > worst.get(key, (-1.0,))[0]:
+                worst[key] = (gap / limit, gap, n + 1)
+            if not gap <= limit:
+                failed.append((n + 1, key, gap, limit))
+    if len(rows) != len(golden["rows"]):
+        failed.append((len(rows), "rows", len(rows), len(golden["rows"])))
+    return worst, failed
+
+
+def restoring_year_rows(m, state, smf, sst, sss, row, sync=None):
+    """The restoring year of phase 10 and of its reference
+    (``golden/regression/restoring_year.py``): RESTORING_SEGMENTS calls
+    of ``m.run_restoring`` (either package's model) with one segment each
+    and ``relyr0`` accumulated as ``run_restoring`` accumulates it.
+    ``row(state, mid)`` is a segment's row from the state after it and
+    the segment's midpoint; ``sync(state)`` waits for the device before
+    a segment (state None) and after it.  Returns (rows, seconds of each
+    segment, the final state, relyr after the year)."""
+    rows, seg_s, relyr = [], [], 0.0
+    seg = RESTORING_SEG_DAYS / RESTORING_YRLEN
+    for _ in range(RESTORING_SEGMENTS):
+        mid = relyr + 0.5 * seg
+        if sync is not None:
+            sync(None)
+        t0 = time.perf_counter()
+        state = m.run_restoring(state, smf, sst, sss, nseg=1,
+                                seg_days=RESTORING_SEG_DAYS, relyr0=relyr,
+                                yrlen=RESTORING_YRLEN)
+        if sync is not None:
+            sync(state)
+        seg_s.append(time.perf_counter() - t0)
+        rows.append(row(state, mid))
+        relyr += seg
+    return rows, seg_s, state, relyr
 
 
 def bgc_month_gaps(rows, golden):
@@ -2385,6 +2532,311 @@ def spinup_options_phase():
     return out
 
 
+def replayed_launches(g, replays0):
+    """The kernel launches of the replays of ``g`` (a model's StepGraphs)
+    since its replay counts were ``replays0``: each graph's replays
+    counted by ``StepGraphs.run`` times the launches captured in it."""
+    return {k: sum((g.replays[lf] - replays0[lf]) * g.captured[lf][k]
+                   for lf in (True, False))
+            for k in KERNEL_NAMES}
+
+
+def port_restoring_row(m, weights, state, sst, sss, mid):
+    """``restoring_row`` of a port model's state after a segment, against
+    the climatology (TimeInterpField) at the segment's midpoint."""
+    def host(x):
+        return x.double().cpu().numpy()
+
+    return restoring_row(weights, host(state.t), host(state.psi0),
+                         host(sst(mid)), host(sss(mid)),
+                         m.scan_cg_iters.cpu().numpy(), state.nconv)
+
+
+def tool_gap(got, ref, scale):
+    """max |got - ref| over max |scale| (NumPy or tensors)."""
+    import numpy as np
+    got, ref, scale = (np.asarray(x.double().cpu() if hasattr(x, "cpu")
+                                  else x, np.float64)
+                       for x in (got, ref, scale))
+    return float(np.abs(got - ref).max() / max(np.abs(scale).max(), 1e-300))
+
+
+def restoring_tools(m, state, smf):
+    """Regions, stations, sections, zonal means and the transport-matrix
+    extraction on the card's state against the same functions on a
+    float64 CPU copy of it; returns the seconds the extraction took on
+    the card and on the CPU."""
+    import torch
+    from uvic_tpu_torch.convert import (ocean_state_from_numpy,
+                                        ocean_state_to_numpy)
+    from uvic_tpu_torch.diag.regions import build_regions
+    from uvic_tpu_torch.diag.sections import (XbtStations, cross_section,
+                                              zonal_mean_sbc)
+    from uvic_tpu_torch.diag.tmm import extract_matrices
+    from uvic_tpu_torch.models.ocean.model import make_forcing, make_ocean
+    g = m.params.grid
+    t0 = time.perf_counter()
+    m64 = make_ocean(m.cfg.replace(dtype="float64"), device="cpu")
+    s64 = ocean_state_from_numpy(ocean_state_to_numpy(state), "cpu",
+                                 torch.float64)
+    smf64 = smf.double().cpu()
+    say(f"  float64 CPU copy of the model and the state built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gaps = {}
+
+    kmt = m.params.topo.kmt
+    r32 = build_regions(g, kmt, dtype=m.cfg.np_dtype, device=m.device)
+    r64 = build_regions(g, kmt, device="cpu")
+    for n, name in enumerate(("T", "S")):
+        got = r32.volume_mean(state.t[n])
+        ref = r64.volume_mean(s64.t[n])
+        gaps[f"regions {name}"] = ("regions", tool_gap(got, ref, s64.t[n]))
+        say(f"  Regions.volume_mean({name}) by basin x layer "
+            f"({', '.join(r64.hregnm)} x {', '.join(r64.vregnm)}): "
+            f"{json.dumps(ref.tolist())}")
+
+    cols = XbtStations(g).sample(state, m)
+    cols64 = XbtStations(g).sample(s64, m64)
+    for k in ("temp", "salt", "u", "v"):
+        scale = [c[k] for c in cols64.values()]
+        gaps[f"xbt {k}"] = ("xbt", tool_gap([c[k] for c in cols.values()],
+                                            scale, scale))
+    say(f"  XbtStations: {len(cols)} stations, n_atlantic temp "
+        f"{cols['n_atlantic']['temp'][:3].tolist()} ...")
+    for kw in (dict(lat=0.0), dict(lat=-60.0), dict(lon=330.0)):
+        for n in range(2):
+            got = cross_section(state.t[n], g, **kw)
+            ref = cross_section(s64.t[n], g, **kw)
+            gaps[f"section {n} {kw}"] = ("section", tool_gap(got, ref, ref))
+    zm = zonal_mean_sbc(dict(sst=state.t[0, 0], sss=state.t[1, 0],
+                             taux=smf[0]), m.tmask[0], g.dxt)
+    zm64 = zonal_mean_sbc(dict(sst=s64.t[0, 0], sss=s64.t[1, 0],
+                               taux=smf64[0]), m64.tmask[0], g.dxt)
+    scales = dict(sst=s64.t[0, 0], sss=s64.t[1, 0], taux=smf64[0])
+    for k in zm:
+        gaps[f"zonal {k}"] = ("zonal", tool_gap(zm[k], zm64[k], scales[k]))
+
+    forcing = make_forcing(smf, torch.zeros_like(state.t[:, 0]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    aexp, aimp, tiles = extract_matrices(m, state, forcing, TMM_SPACING)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aexp64, aimp64, _ = extract_matrices(
+        m64, s64, make_forcing(smf64, s64.t[:, 0] * 0.0), TMM_SPACING)
+    cpu_s = time.perf_counter() - t0
+    say(f"  extract_matrices at spacing {TMM_SPACING}: {tiles.shape[0]} "
+        f"tiles of {tuple(tiles.shape[1:])} in one tracer step, "
+        f"{aimp.shape[0]} sheets in one invtri: {card_s:.2f} s on the card "
+        f"(float32, with the copy to the host), {cpu_s:.2f} s on the CPU "
+        f"(float64)")
+    gaps["tmm Aexp"] = ("tmm_exp", tool_gap(aexp, aexp64, aexp64))
+    gaps["tmm Aimp"] = ("tmm_imp", tool_gap(aimp, aimp64, aimp64))
+    for name, (kind, gap) in gaps.items():
+        say(f"  {name}: max |card - float64 CPU| / scale {gap:.3e} "
+            f"(tolerance {TOL_TOOLS[kind]:g})")
+        if not gap <= TOL_TOOLS[kind]:
+            raise AssertionError(f"tooling: {name} {gap} > "
+                                 f"{TOL_TOOLS[kind]}")
+    del m64, s64
+    return card_s, cpu_s
+
+
+def restoring_phase(earth):
+    """Phase 10: the ocean-only restoring run of the flagship, its
+    tooling, and the bisector on phase 6's earth model.  Returns the
+    kernel checks on a restoring step's inputs, the launch counts and the
+    times."""
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.debug import bisect_segment, nan_report
+    from uvic_tpu_torch.entry import _flagship
+    from uvic_tpu_torch.io.bcest import bcest_fields
+    from uvic_tpu_torch.io.timeforce import (TimeInterpField,
+                                             default_surface_climatology)
+    from uvic_tpu_torch.models.ocean.graphs import KERNEL_WRAPPERS
+    from uvic_tpu_torch.models.ocean.model import make_forcing
+    with open(RESTORING_GOLDEN) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    m, start, forcing = _flagship()
+    g = m.params.grid
+    smf = forcing.smf
+    sst, sss = default_surface_climatology(g, dtype=m.cfg.np_dtype,
+                                           device=m.device)
+    seg = RESTORING_SEG_DAYS / RESTORING_YRLEN
+    nsteps = max(1, round(RESTORING_SEG_DAYS * 86400.0 / m.cfg.ocean.dtts))
+    say(f"  flagship built and primed in {time.perf_counter() - t0:.1f} s; "
+        f"a {RESTORING_SEG_DAYS:g}-day segment is {nsteps} steps (dtts "
+        f"{m.cfg.ocean.dtts:g} s), itt {start.itt}")
+    if nsteps != 24:
+        raise AssertionError(f"restoring: {nsteps} steps a segment")
+
+    def seg_forcing(state, sst_f, mid):
+        """The forcing run_restoring gives a segment's steps."""
+        return m.apply_restoring(
+            make_forcing(smf, torch.zeros_like(forcing.stf), relyr=mid),
+            state, sst_f, sss, relyr=mid)
+
+    say(" kernels on the inputs of a restoring step (the seasonal "
+        "climatology at the first segment's midpoint, phase 2's noise on T "
+        "and S)")
+    noisy = perturbed(m, start)
+    _, seen = capture_step(m, noisy, seg_forcing(noisy, sst, 0.5 * seg))
+    stf = seen["tracer"][0][7]
+    nonzero = [int((stf[n] != 0).sum()) for n in range(2)]
+    say(f"  the tracer step's stf: {nonzero} non-zero cells in the T and S "
+        f"rows, |stf| max {float(stf[0].abs().max()):.3e} (T), "
+        f"{float(stf[1].abs().max()):.3e} (S)")
+    if min(nonzero) == 0:
+        raise AssertionError("restoring: a row of stf is zero")
+    out = dict(tracer=check_tracer(m, seen, "restoring tracer step"),
+               convect=check_convect(seen), cg=check_cg(m, seen))
+
+    say(f" the restoring year: {RESTORING_SEGMENTS} segments through "
+        "OceanModel.run_restoring, one call a segment")
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = m.run_restoring(start, smf, sst, sss, nseg=1,
+                            seg_days=RESTORING_SEG_DAYS, relyr0=0.0,
+                            yrlen=RESTORING_YRLEN)
+    torch.cuda.synchronize()
+    graphs = m._graphs
+    launched = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+    say(f"  first segment {time.perf_counter() - t0:.2f} s with the capture; "
+        f"the wrappers' launches over it (the capture's warm-up steps and "
+        f"the captures) {json.dumps(launched)}; replays by step type "
+        f"(leapfrog, mixing) {graphs.replays[True]}, {graphs.replays[False]}")
+    say_graphs(m, "restoring")
+    # the warm-up takes one step of each type, the captures another: any
+    # launch beyond them would be an eager step inside the segment
+    outside = {k: launched[k] - 2 * (graphs.captured[True][k]
+                                     + graphs.captured[False][k])
+               for k in KERNEL_WRAPPERS}
+    out["run_counts"] = replayed_launches(graphs, {True: 0, False: 0})
+    if any(outside.values()) \
+            or graphs.replays[True] + graphs.replays[False] != nsteps \
+            or any(c != nsteps for c in out["run_counts"].values()):
+        raise AssertionError(f"restoring: the first segment launched "
+                             f"{json.dumps(outside)} outside the captures "
+                             f"and {json.dumps(out['run_counts'])} by replay")
+    _, eager_ms, out["eager_counts"] = scan_vs_eager(
+        m, start, seg_forcing(start, sst, 0.5 * seg), nsteps,
+        "restoring segment 1")
+    diff = same_state(first, m.run_scan(start, seg_forcing(start, sst,
+                                                           0.5 * seg),
+                                        nsteps))
+    say(f"  run_restoring's first segment against run_scan on the same "
+        f"forcing: max |diff| {diff:.3e} (bitwise required); launches by "
+        f"the segment's replays {json.dumps(out['run_counts'])}")
+    if diff != 0.0:
+        raise AssertionError("restoring: the first segment's replay differs "
+                             "from the eager steps")
+
+    warm = TimeInterpField(sst.records.cpu().numpy() + RESTORING_WARMER,
+                           centers=sst.centers.cpu().numpy(),
+                           dtype=m.cfg.np_dtype, device=m.device)
+    old = m.run_restoring(first, smf, sst, sss, nseg=1,
+                          seg_days=RESTORING_SEG_DAYS, relyr0=seg,
+                          yrlen=RESTORING_YRLEN)
+    new = m.run_restoring(first, smf, warm, sss, nseg=1,
+                          seg_days=RESTORING_SEG_DAYS, relyr0=seg,
+                          yrlen=RESTORING_YRLEN)
+    wet = m.tmask[0] > 0
+    dsst = (new.t[0, 0] - old.t[0, 0])[wet]
+    say(f"  segment 2 under a climatology {RESTORING_WARMER:g} K warmer, on "
+        f"the same graphs: SST moved by {float(dsst.mean()):.4f} K on "
+        f"average (min {float(dsst.min()):.4f}, max "
+        f"{float(dsst.max()):.4f})")
+    if not float(dsst.mean()) > 0.0:
+        raise AssertionError("restoring: the graphs did not follow the new "
+                             "climatology")
+    scan_vs_eager(m, first, seg_forcing(first, warm, 1.5 * seg), nsteps,
+                  "segment 2, warmer climatology")
+
+    weights = restoring_weights(g, m.tmask.cpu().numpy())
+
+    def year_row(state, mid):
+        if not rows_done and same_state(state, first) != 0.0:
+            raise AssertionError("restoring: the year's first segment "
+                                 "differs from the first replay")
+        rows_done.append(mid)
+        return port_restoring_row(m, weights, state, sst, sss, mid)
+
+    rows_done = []
+    replays0 = dict(graphs.replays)
+    launches0 = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+    rows, seg_s, state, relyr = restoring_year_rows(
+        m, start, smf, sst, sss, year_row,
+        lambda _: torch.cuda.synchronize())
+    year_counts = replayed_launches(graphs, replays0)
+    eager = {k: w.launches - launches0[k]
+             for k, w in KERNEL_WRAPPERS.items()}
+    say(f"  the year's launches by replay {json.dumps(year_counts)}, "
+        f"outside the graphs {json.dumps(eager)}")
+    if m._graphs is not graphs or any(eager.values()) \
+            or any(c != RESTORING_SEGMENTS * nsteps
+                   for c in year_counts.values()):
+        raise AssertionError("restoring: the year did not replay the first "
+                             "segment's graphs alone")
+    check_finite(state, "the restoring year")
+    year_s = sum(seg_s)
+    say(f"  segments {', '.join(f'{1e3 * s:.1f}' for s in seg_s)} ms; the "
+        f"year {year_s:.3f} s ({86400.0 / year_s:.0f} simulated years a "
+        f"day; {1e3 * statistics.median(seg_s) / nsteps:.3f} ms a step)")
+    for n, row in enumerate(rows):
+        say(f"  segment {n + 1}: {json.dumps(row)}")
+    worst, failed = restoring_gaps(rows, golden)
+    say(f"  held against {RESTORING_GOLDEN} ({golden['limit_rule']}); each "
+        "key's largest share of its limit (share, gap, segment): "
+        + json.dumps({k: [round(v[0], 4), v[1], v[2]]
+                      for k, v in worst.items()}))
+    if failed:
+        raise AssertionError(f"restoring year out of limits: {failed}")
+
+    bstate = m.run_restoring(state, smf, nseg=1,
+                             seg_days=RESTORING_SEG_DAYS, relyr0=relyr,
+                             yrlen=RESTORING_YRLEN, climatology="bcest")
+    check_finite(bstate, "the bcest segment")
+    b = bcest_fields(g)
+    brow = restoring_row(weights, bstate.t.double().cpu().numpy(),
+                         bstate.psi0.double().cpu().numpy(), b["sst"],
+                         (b["sss"] - 35.0) / 1000.0,
+                         m.scan_cg_iters.cpu().numpy(), bstate.nconv)
+    say(f"  one bcest segment after the year: {json.dumps(brow)}")
+
+    say(" the tooling on the year's final state, against a float64 CPU "
+        "copy")
+    out["tmm_card_s"], out["tmm_cpu_s"] = restoring_tools(m, state, smf)
+
+    say(" the bisector (uvic_tpu_torch.debug) on phase 6's earth model")
+    em, estart = earth["model"], earth["start"]
+    t0 = time.perf_counter()
+    res = bisect_segment(em, estart)
+    say(f"  the restart's state: ok {res['ok']}, phase {res['phase']} "
+        f"({time.perf_counter() - t0:.1f} s, eager)")
+    hice = estart.ice.hice.clone()
+    j, i = np.unravel_index(int(hice.argmax()), tuple(hice.shape))
+    hice[j, i] = float("nan")
+    bad = dataclasses.replace(estart, ice=dataclasses.replace(estart.ice,
+                                                              hice=hice))
+    rep = nan_report(bad)
+    res_bad = bisect_segment(em, bad)
+    say(f"  hice[{j}, {i}] set to NaN: nan_report {rep}; bisect ok "
+        f"{res_bad['ok']}, phase {res_bad['phase']!r}, detail "
+        f"{res_bad['detail']}")
+    if not res["ok"] or res_bad["ok"] \
+            or res_bad["phase"] != "atm_ice substep 0" \
+            or [k for k, _, _ in rep] != ["stateice/hice"]:
+        raise AssertionError(f"bisector: {res} {res_bad} {rep}")
+    out.update(eager_ms=eager_ms, year_s=year_s,
+               seg_ms=1e3 * statistics.median(seg_s),
+               year_counts=year_counts)
+    return out
+
+
 def main(argv):
     if len(argv) == 2 and argv[0] == "--golden-gaps":
         return golden_gaps_of(argv[1])
@@ -2575,10 +3027,23 @@ def main(argv):
             f"captures {r['capture_s']:.2f} s, instantiations "
             f"{r['instantiate_s']:.2f} s")
 
+    say("phase 10: the ocean-only restoring run (OceanModel.run_restoring) "
+        "of the flagship, its tooling (regions, sections, the transport "
+        "matrix) and the NaN bisector")
+    rest = restoring_phase(earth)
+    for key in ("tracer", "convect", "cg"):
+        rest[key].pop("per_call_fn", None)
+        say_kernel("restoring", rest[key])
+    say(f"  restoring segment: eager {rest['eager_ms']:.3f} ms a step, "
+        f"replayed {rest['seg_ms']:.1f} ms a segment; the year "
+        f"{rest['year_s']:.3f} s ({86400.0 / rest['year_s']:.0f} simulated "
+        f"years a day); extract_matrices {rest['tmm_card_s']:.2f} s on the "
+        f"card, {rest['tmm_cpu_s']:.2f} s on the CPU in float64")
+
     # All profiler sessions come last: on the card, a torch.profiler
     # session taken after an earlier session and ~1e5 eager launches in
     # between recorded no device activity at all (PyTorch 2.11).
-    say("phase 10: torch.profiler counts")
+    say("phase 11: torch.profiler counts")
     checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
                ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
                ("nt=41", k_convect41))
@@ -2617,7 +3082,10 @@ def main(argv):
                       for o in EARTH_OPTIONS},
                    **{f"earth_{o}_run_per_segment":
                       opts["options"][o]["run_counts"][k]
-                      for o in EARTH_OPTIONS}}
+                      for o in EARTH_OPTIONS},
+                   "restoring_eager_per_segment": rest["eager_counts"][k],
+                   "restoring_run_per_segment": rest["run_counts"][k],
+                   "restoring_year_by_replays": rest["year_counts"][k]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -2671,6 +3139,14 @@ def main(argv):
             "bound_by", "library_ms")}
         if "iters" in ka:
             entry["earth_accel"]["iters"] = ka["iters"]
+        kr = rest[{"fct_tracer_step": "tracer",
+                   "apply_region_means": "convect",
+                   "congrad": "cg"}[k["name"]]]
+        entry["restoring"] = {key: kr[key] for key in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        if "iters" in kr:
+            entry["restoring"]["iters"] = kr["iters"]
         if k["name"] == "apply_region_means":
             kbr = opts["brine_convect"]
             entry["earth_brine"] = {key: kbr[key] for key in (
@@ -2687,7 +3163,9 @@ def main(argv):
         f"({EARTH_YEAR} segments against the golden tsi); earth bgc "
         f"segment eager {bgc['eager_ms']:.1f} ms, replayed "
         f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
-        f"({EARTH_BGC_MONTH} segments against {EARTH_BGC_GOLDEN})")
+        f"({EARTH_BGC_MONTH} segments against {EARTH_BGC_GOLDEN}); "
+        f"restoring segment replayed {rest['seg_ms']:.1f} ms "
+        f"({RESTORING_SEGMENTS} segments against {RESTORING_GOLDEN})")
     say(f"total {time.perf_counter() - t_start:.1f} s "
         f"(watchdog {WATCHDOG_S} s)")
     say(card)

@@ -5,7 +5,8 @@ the CPU.
 stages and shared memory; it is held to the H100's limits here, and a
 plain-PyTorch emulation of the kernel's schedule (tiles of the plane, a
 ring of staged tracer tiles refilled ``stages`` tracers ahead, one
-multiply-add chain over the levels per output) is held bitwise against
+multiply-add chain per output over the levels' differences from the top
+of the output's region) is held bitwise against
 ``apply_region_means_ref``, which the kernel is held against on the card.
 """
 
@@ -20,11 +21,11 @@ from uvic_tpu_torch.ops.tracer_kernel import SMEM_LIMIT
 
 H100_SMS = 132
 SM_THREADS = 2048           # resident threads an SM holds
-SM_REGISTERS = 65536
+SMSP_REGISTERS = 65536 // 4  # each of an SM's four partitions holds its warps
 STATIC_SMEM = 48 * 1024     # the launcher sets no opt-in attribute
-# registers a thread of the km <= 20 instantiation takes: 49 by ptxas
+# registers a thread of the km <= 20 instantiation takes: 40 by ptxas
 # (chip_smoke.py phase 1 prints it on the H100), allocated in units of 8
-FLAGSHIP_REGISTERS = 56
+FLAGSHIP_REGISTERS = 40
 
 FLAGSHIP = [(2, 19, 102, 102), (41, 19, 102, 102)]
 # chip_smoke.py CONVECT_SHAPES: odd planes, km 1 to 64, nt 1 to 41
@@ -48,14 +49,16 @@ def test_launch_fits_the_card(shape):
 
 @pytest.mark.parametrize("nt", [2, 41])
 def test_flagship_grid_takes_under_two_waves(nt):
-    """3 blocks an SM by registers (the card's occupancy query, printed by
-    chip_smoke.py, agrees): 651 blocks in 1.6 waves of 396."""
+    """4 blocks an SM by registers, each of the SM's four partitions
+    holding 12 warps of 40-register threads (the card's occupancy query,
+    printed by chip_smoke.py, agrees): 651 blocks in 1.23 waves of
+    528."""
     blocks, cols, _, smem = region_means_launch(nt, 19, 102, 102)
     warps = -(-cols * 19 // 32)
     per_sm = min(SM_THREADS // (32 * warps),
-                 SM_REGISTERS // (32 * warps * FLAGSHIP_REGISTERS),
+                 4 * (SMSP_REGISTERS // (32 * FLAGSHIP_REGISTERS)) // warps,
                  SMEM_LIMIT // (smem + 1024))
-    assert (blocks, cols, warps, per_sm) == (651, 16, 10, 3)
+    assert (blocks, cols, warps, per_sm) == (651, 16, 10, 4)
     assert H100_SMS * per_sm < blocks < 2 * H100_SMS * per_sm
 
 
@@ -83,15 +86,20 @@ def region_means_tiled(ts, mnorm, ocean):
         for s in range(min(STAGES - 1, nt)):
             ring[s] = t[s, :, c0:c0 + w].clone()
         mrow, wet = m[:, :, c0:c0 + w], wet_all[:, c0:c0 + w]
+        # each thread's reference level: the first l with M[k, l] != 0
+        nz = mrow != 0
+        own = torch.arange(km)[:, None].expand(km, w)
+        lref = torch.where(nz.any(1), nz.to(torch.uint8).argmax(1), own)
         for n in range(nt):
             ahead = n + STAGES - 1
             if ahead < nt:
                 ring[(n - 1) % STAGES] = t[ahead, :, c0:c0 + w].clone()
             tile = ring[n % STAGES]
-            acc = mrow[:, 0] * tile[0][None]
+            r = torch.gather(tile, 0, lref)
+            acc = mrow[:, 0] * (tile[0][None] - r)
             for l in range(1, km):
-                acc = acc + mrow[:, l] * tile[l][None]
-            out[n, :, c0:c0 + w] = torch.where(wet, acc, tile)
+                acc = acc + mrow[:, l] * (tile[l][None] - r)
+            out[n, :, c0:c0 + w] = torch.where(wet, r + acc, tile)
     return out.reshape(ts.shape)
 
 

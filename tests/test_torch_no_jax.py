@@ -45,7 +45,10 @@ def test_every_module_imports_without_jax():
     assert {"uvic_tpu_torch.models.sed.porewater",
             "uvic_tpu_torch.models.sed.sediment",
             "uvic_tpu_torch.models.ice.cpts", "uvic_tpu_torch.diag.energy",
-            "uvic_tpu_torch.spinup"} <= set(MODULES)
+            "uvic_tpu_torch.spinup", "uvic_tpu_torch.io.timeforce",
+            "uvic_tpu_torch.io.bcest", "uvic_tpu_torch.io.regrid",
+            "uvic_tpu_torch.diag.regions", "uvic_tpu_torch.diag.sections",
+            "uvic_tpu_torch.diag.tmm", "uvic_tpu_torch.debug"} <= set(MODULES)
     out = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *MODULES], cwd=ROOT,
         capture_output=True, text=True, timeout=300)

@@ -4,8 +4,10 @@ The JAX package's ``OceanState`` goes in as a dict of NumPy arrays under
 its field names (``uvic_tpu/core/state.py``); the port's state comes
 back out the same way.  The coupled state goes both ways under the
 restart's keys ("ocean/t", "atm/nats", "land/frac", "sed/calgg", ...),
-the keys of ``uvic_tpu.io.restart``.  Parameters are not converted: the
-port builds its own from the configuration.
+the keys of ``uvic_tpu.io.restart``.  A climatology (``TimeInterpField``)
+and a region set (``Regions``) come in from their NumPy arrays, so that
+both packages compute from the same inputs.  Parameters are not
+converted: the port builds its own from the configuration.
 """
 
 from __future__ import annotations
@@ -63,3 +65,23 @@ def coupled_state_from_numpy(d, template):
     host = dict(host_of(template), itt=int(np.asarray(d["ocean/itt"])),
                 nats=int(np.asarray(d["atm/nats"])))
     return unpack_state(ws, host)
+
+
+def time_interp_field_from_numpy(records, centers, device):
+    """A ``TimeInterpField`` holding ``uvic_tpu``'s records and centers
+    (NumPy arrays, their dtype kept) on ``device``."""
+    from .io.timeforce import TimeInterpField
+    records = np.asarray(records)
+    return TimeInterpField(records, centers=np.asarray(centers),
+                           dtype=records.dtype, device=device)
+
+
+def regions_from_numpy(d, device):
+    """Port ``Regions`` from a dict of NumPy arrays under the field names
+    of ``uvic_tpu.diag.regions.Regions`` (its ``_dvol`` as ``dvol``)."""
+    from .diag.regions import Regions
+    fields = {k: torch.as_tensor(np.array(d[k]), device=device)
+              for k in ("mskhr", "mskvr", "hmask", "vmask", "areab",
+                        "volbk", "volbt", "dvol")}
+    return Regions(hregnm=tuple(d["hregnm"]), vregnm=tuple(d["vregnm"]),
+                   **fields)

@@ -4,7 +4,13 @@
 // _apply_region_means_pallas.  out[n, k] = sum_l M[k, l] * t[n, l] on
 // ocean cells, t passed through elsewhere; M is the normalised
 // region-membership matrix of the complete convection scheme (convct2,
-// convect.F:99-311), built from the stable labels in convct_full.
+// convect.F:99-311), built from the stable labels in convct_full.  It is
+// computed as r + sum_l M[k, l] * (t[n, l] - r), r the tracer at the
+// first level l with M[k, l] != 0 (the top of k's region): a row of M
+// sums to one only to a rounding, the same at every step, which applied
+// to the tracer's whole value drifts it; against r it weighs only the
+// spread within the region, and every level of a region computes the
+// same numbers (ops/convection.py:apply_region_means_ref).
 //
 // What bounds it: bytes.  A call reads t (nt x km planes), M (km x km
 // planes) and the ocean mask once and writes nt x km planes: 80.7 MB at
@@ -31,13 +37,14 @@
 //   publishes the tile and frees the slot read for the tracer before,
 //   which is then refilled.
 // At the flagship, km 19 takes the KMAX 20 instantiation: blocks of
-// 16 x 19 threads, 49 registers a thread on the H100, 3 blocks an SM, so
-// 651 blocks in 1.6 waves.  Two designs tried first were slower: each level row staged by one cp.async.bulk on an mbarrier,
+// 16 x 19 threads, 40 registers a thread on the H100, 4 blocks an SM, so
+// 651 blocks in 1.23 waves.  Two designs tried first were slower: each level row staged by one cp.async.bulk on an mbarrier,
 // from warp 0 (19 copies of 64 bytes a tile: the copies, not the bytes,
 // set the time), and the tile held row by row, read with 4-byte shared
 // loads; capping registers for more blocks an SM gained nothing.
 // Each output is one chain of FMAs over l = 0 .. km-1, in that order
-// (the order of the TPU kernel and of the first port of this kernel).
+// (the order of the TPU kernel and of the first port of this kernel),
+// on the differences t[n, l] - r.
 // The host-side geometry (C, shared-memory bytes) comes from
 // ops/convection.py:region_means_launch.
 
@@ -94,6 +101,10 @@ region_means_kernel(const float* __restrict__ ts, const float* __restrict__ m,
   for (int l = 0; l < KMAX; ++l)
     mrow[l] = (col && l < km) ? __ldg(mk + (size_t)l * plane) : 0.f;
   const bool wet = col && __ldg(ocean + (size_t)k * plane + g) > 0.f;
+  int lref = k;                        // the top of this level's region
+#pragma unroll
+  for (int l = KMAX - 1; l >= 0; --l)
+    if (l < km && mrow[l] != 0.f) lref = l;
 
   int slot = 0;                        // n % STAGES
   for (int n = 0; n < nt; ++n) {
@@ -104,8 +115,9 @@ region_means_kernel(const float* __restrict__ ts, const float* __restrict__ m,
       cp_async4(mine + (slot == 0 ? STAGES - 1 : slot - 1) * tile,
                 src + ahead * tracer);
     cp_async_commit();
-    const float4* t =
-        reinterpret_cast<const float4*>(tiles + slot * tile + c * S);
+    const float* column = tiles + slot * tile + c * S;
+    const float4* t = reinterpret_cast<const float4*>(column);
+    const float r = column[lref];
     float acc = 0.f;
 #pragma unroll
     for (int q = 0; q < KMAX / 4; ++q) {
@@ -115,13 +127,14 @@ region_means_kernel(const float* __restrict__ ts, const float* __restrict__ m,
       for (int j = 0; j < 4; ++j) {
         const int l = 4 * q + j;
         if (l == 0)
-          acc = mrow[0] * tl[0];
+          acc = mrow[0] * (tl[0] - r);
         else if (l < km)
-          acc += mrow[l] * tl[j];
+          acc += mrow[l] * (tl[j] - r);
       }
     }
     if (col)
-      out[n * tracer + (size_t)k * plane + g] = wet ? acc : mine[slot * tile];
+      out[n * tracer + (size_t)k * plane + g] =
+          wet ? r + acc : mine[slot * tile];
     slot = slot == STAGES - 1 ? 0 : slot + 1;
   }
 }

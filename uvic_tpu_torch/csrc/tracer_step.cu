@@ -41,8 +41,15 @@
 //      (second half); the first half adds the two at the start of the
 //      next level and runs the Thomas forward elimination, one thread
 //      per column, with its coefficients in shared memory.
-// Back-substitution after the last level writes t_new once, each
-// duplicated column computed at its mirror (setbcx).  No global
+// The Thomas solve is for the increment y = z - x of x = t_new * mask
+// (ops/tridiag.py:invtri): a wet row of the system sums to one, so
+// A y = fluxes - a (x[k-1] - x[k]) - c (x[k+1] - x[k]), whose rounding
+// scales with the implicit diffusion's increment instead of with the
+// tracer (solved for z itself, a column mixed by a large K33 drifts by
+// an ulp of the tracer a step).  Level k's right side needs x[k+1], so
+// its elimination is completed one level later.  x goes to the output
+// as its level is eliminated; back-substitution after the last level
+// adds y, each duplicated column computed at its mirror (setbcx).  No global
 // scratch; three __syncthreads() per level.  The rows j+-1, j+-2 are
 // fetched by five blocks (from L2); the weights by at most two.  A
 // ratio's quotient is the correctly rounded reciprocal times the
@@ -456,28 +463,37 @@ __global__ void __launch_bounds__(MAXNT, 2) fct_tracer_kernel(Args a) {
   const int kb = max(kmt - 1, 1);
   const bool iso = a.isow != nullptr;
 
+  // this thread's column of the output (the mirror column's values)
+  float* o = a.out + (size_t)n * km * plane + (size_t)j * W + i;
+
   // half 0 carries level k's own terms and Thomas coefficients to the
   // next step, where it adds half 1's terms and runs the elimination
   float fb_up = 0.f, dfb_up = 0.f, fbi_up = 0.f;   // fluxes through the top face
-  float bet = 0.f, c_up = 0.f;                      // Thomas carry
+  // Thomas carry: level k-1's bet, c, x and right side less its c term
+  float bet = 0.f, c_up = 0.f, x_up = 0.f, part = 0.f;
   float tend0 = 0.f, tm0 = 0.f, msk0 = 0.f, twodt0 = 0.f, ak0 = 0.f, ck0 = 0.f, f0 = 0.f;
   // t_new of level k and its forward elimination (half 0)
   auto eliminate = [&](int k) {
     float t_new = tm0 + twodt0 * (tend0 + v.PT(k)[ic]) * msk0;
     if (a.aidif > 0.f) {
-      float fk = t_new * msk0 + f0;
+      float x = t_new * msk0;
       float bk = 1.f - ak0 - ck0;
+      o[(size_t)k * plane] = x;
       if (k == 0) {
         bet = msk0 / (bk + THOMAS_EPS);
-        tz[0] = fk * bet;
+        part = f0;
         te[0] = 0.f;
       } else {
+        // level k-1's right side is whole now that x[k] is known
+        float zu = (part + c_up * (x_up - x)) * bet;
+        tz[(k - 1) * ncol] = zu;
         float ek = c_up * bet;
         te[k * ncol] = ek;
         bet = msk0 / (bk - ak0 * ek + THOMAS_EPS);
-        tz[k * ncol] = (fk - ak0 * tz[(k - 1) * ncol]) * bet;
+        part = f0 - ak0 * (x_up - x) - ak0 * zu;
       }
       c_up = ck0;
+      x_up = x;
     } else {
       tz[k * ncol] = t_new;
     }
@@ -561,12 +577,16 @@ __global__ void __launch_bounds__(MAXNT, 2) fct_tracer_kernel(Args a) {
   __syncthreads();
   if (!col || h != 0) return;
   eliminate(km - 1);
-  float* o = a.out + (size_t)n * km * plane + (size_t)j * W + i;
-  float zk = tz[(km - 1) * ncol];
-  o[(size_t)(km - 1) * plane] = zk;
-  for (int k = km - 2; k >= 0; --k) {
-    zk = a.aidif > 0.f ? tz[k * ncol] - te[(k + 1) * ncol] * zk : tz[k * ncol];
-    o[(size_t)k * plane] = zk;
+  if (a.aidif > 0.f) {
+    // the deepest level's right side has no c term (c = 0 there)
+    float y = part * bet;
+    o[(size_t)(km - 1) * plane] += y;
+    for (int k = km - 2; k >= 0; --k) {
+      y = tz[k * ncol] - te[(k + 1) * ncol] * y;
+      o[(size_t)k * plane] += y;
+    }
+  } else {
+    for (int k = km - 1; k >= 0; --k) o[(size_t)k * plane] = tz[k * ncol];
   }
 }
 

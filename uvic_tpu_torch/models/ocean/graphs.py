@@ -71,6 +71,8 @@ class StepGraphs:
     to instantiate, keyed by the leapfrog flag.
     captured : the launches each kernel wrapper made during each capture,
     i.e. its kernel nodes in that graph, keyed by the leapfrog flag.
+    replays : how many times each graph was replayed, keyed by the
+    leapfrog flag.
     """
 
     def __init__(self, model, state: OceanState, forcing):
@@ -96,6 +98,7 @@ class StepGraphs:
 
         self.graphs, self.capture_s, self.instantiate_s = {}, {}, {}
         self.captured = {}
+        self.replays = {True: 0, False: 0}
         with capturing():
             for lf in (True, False):
                 self._capture(model, lf)
@@ -147,7 +150,9 @@ class StepGraphs:
             getattr(self.forcing, f).copy_(getattr(forcing, f))
         itt = state.itt
         for n in range(nsteps):
-            self.graphs[(itt % nmix) != 0].replay()
+            lf = (itt % nmix) != 0
+            self.graphs[lf].replay()
+            self.replays[lf] += 1
             if iters_log is not None:
                 iters_log[n].copy_(self.iters)
             itt += 1

@@ -1,10 +1,13 @@
-"""Ocean dynamical-core stencils: advection velocities and the
-baroclinic momentum update (torch).
+"""Ocean dynamical-core stencils: advection velocities, the generic
+tracer update and the baroclinic momentum update (torch).
 
 Port of ``uvic_tpu.models.ocean.kernels`` (source/mom/adv_vel.F,
-clinic.F with the finite-difference numerics of fdifm.h).  Array layout
-is ``(..., km, jmt, imt)``.  The tracer update lives in
-``ops/tracer_kernel.py`` (the fused kernel and its plain version).
+tracer.F, clinic.F with the finite-difference numerics of
+fdift.h/fdifm.h).  Array layout is ``(..., km, jmt, imt)``.  The model's
+own step takes the fused FCT tracer update of ``ops/tracer_kernel.py``
+(the kernel and its plain version); ``tracer_step`` here is the
+reference's generic form, with the branches the transport-matrix
+extraction (``diag/tmm.py``) reaches.
 
 All velocities passed in are *full* velocities (internal + external
 mode); the caller reconstructs them from the streamfunction.
@@ -14,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
+from ...ops.advection import centered_flux
 from ...ops.stencil import DN, E, N, S, UP, W, setbcx
+from ...ops.tridiag import invtri_columns
 
 
 def adv_vel(u, v, g, cyclic=True):
@@ -74,6 +79,78 @@ def adv_vel(u, v, g, cyclic=True):
     vbu = setbcx(vbu, cyclic)
 
     return vet, vnt, vbt, veu, vnu, vbu
+
+
+def tracer_step(t_tau, t_tm1, vet, vnt, vbt, stf, btf, source,
+                diff_cbt, kmt, tmask, g, c2dtts, scheme: str,
+                aidif: float, cyclic=True, iso=None, hmix=None):
+    """One tracer timestep for all tracers (tracer.F:678-916).
+
+    t_tau/t_tm1 : (nt, km, jmt, imt)
+    vet/vnt/vbt : total advective velocities
+    stf/btf     : (nt, jmt, imt) surface/bottom tracer fluxes
+    source      : (nt, km, jmt, imt) or None
+    diff_cbt    : (km, jmt, imt) vertical diffusivity at cell bottoms
+    returns t at tau+1 (before convection/filtering).
+
+    The centered scheme with constant horizontal mixing and no isopycnal
+    fluxes is ported (what ``diag/tmm.py`` runs); the other schemes and
+    the ``iso``/``hmix`` branches are the ocean options of ROADMAP
+    Queue A item 2 and raise.
+    """
+    if scheme != "centered" or iso is not None or hmix is not None:
+        raise NotImplementedError(
+            f"tracer_step: scheme {scheme!r}, iso {iso is not None}, hmix "
+            f"{hmix is not None}: only the centered scheme with constant "
+            "hmix and no isopycnal fluxes is ported (the other branches "
+            "are the ocean options of ROADMAP Queue A item 2)")
+    km = t_tau.shape[1]
+    twodt = (c2dtts * g.dtxcel).reshape(km, 1, 1)
+    cstdxt2r = g.cstdxt2r[None]      # (1, jmt, imt) broadcast over k
+    cstdxtr = g.cstdxtr[None]
+    cstdyt2r = g.cstdyt2r[None, :, None]
+    dzt2r = g.dzt2r[:, None, None]
+    dztr = g.dztr[:, None, None]
+
+    # advective fluxes (2x flux convention)
+    fe, fn, fb = centered_flux(t_tau, vet[None], vnt[None], vbt[None])
+    adv_tx = (fe - W(fe)) * cstdxt2r[None]
+    adv_ty = (fn - S(fn)) * cstdyt2r[None]
+    adv_tz = (UP(fb) - fb) * dzt2r[None]
+
+    # horizontal diffusive fluxes (consthmix path, tracer.F:691-798)
+    diff_fe = g.ah * g.cstdxur[None, None] * (E(t_tm1) - t_tm1)
+    ahc_n = g.ahc_north[None, None, :, None]
+    ahc_s = g.ahc_south[None, None, :, None]
+    diff_ty = (ahc_n * N(tmask)[None] * (N(t_tm1) - t_tm1)
+               - ahc_s * S(tmask)[None] * (t_tm1 - S(t_tm1)))
+    diff_tx = (diff_fe * E(tmask)[None]
+               - W(diff_fe) * W(tmask)[None]) * cstdxtr[None]
+
+    # vertical diffusive flux through cell bottoms (tracer.F:787-798);
+    # broadcasting t (nt,km,j,i) against diff_cbt (km,j,i)
+    dzwr = g.dzwr[1:].reshape(km, 1, 1)   # 1/dzw(k) at bottom of cell k
+    diff_fb = diff_cbt[None] * dzwr[None] * (t_tm1 - DN(t_tm1))
+    diff_fb[..., -1, :, :] = 0.0
+    # bottom b.c.: replace the flux at the bottom of the deepest ocean cell
+    levels = torch.arange(km, device=t_tau.device).reshape(km, 1, 1)
+    is_bot = (levels == (kmt - 1)[None])[None]
+    diff_fb = torch.where(is_bot, btf[:, None], diff_fb)
+    # surface b.c. enters level 0 as stf
+    fb_above = UP(diff_fb)
+    fb_above[:, 0] = stf
+    diff_tz = (fb_above - diff_fb) * dztr[None] * (1.0 - aidif)
+
+    tend = diff_tx + diff_ty + diff_tz - adv_tx - adv_ty - adv_tz
+    if source is not None:
+        tend = tend + source
+    t_new = t_tm1 + twodt[None] * tend * tmask[None]
+
+    # implicit part of the vertical diffusion (tracer.F:899, ivdift:1691)
+    if aidif > 0.0:
+        t_new = invtri_columns(t_new, stf, btf, diff_cbt, c2dtts * g.dtxcel,
+                               kmt, tmask, g.dztr, g.dztur, g.dztlr, aidif)
+    return setbcx(t_new, cyclic)
 
 
 def hydrostatic_grad_p(rho, g, cyclic=True):

@@ -24,6 +24,7 @@ reference's ``lax.scan``.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from types import SimpleNamespace
 
@@ -151,6 +152,7 @@ class OceanModel:
                      "ahc_north", "ahc_south", "am3", "am4", "dtxcel"):
             setattr(bag, name, tn(getattr(params, name)))
         bag.am = cfg.ocean.am
+        bag.ah = cfg.ocean.ah             # kernels.tracer_step
         bag.hr = tn(topo.hr)
         bag.zt = tn(g.zt)                 # level depths (diag/energy.py)
         bag.grav_rho0r = GRAV * RHO0R
@@ -448,6 +450,69 @@ class OceanModel:
         for _ in range(nsteps):
             state = self.step(state, forcing,
                               leapfrog=(state.itt % nmix) != 0)
+        return state
+
+    def apply_restoring(self, forcing: SurfaceForcing, state: OceanState,
+                        sst_field, sss_field,
+                        relyr=0.0) -> SurfaceForcing:
+        """O_restorst: replace the T/S surface-flux rows with Newtonian
+        restoring toward time-interpolated climatology (data.F:119-142,
+        checks.F:240-265).  sst_field/sss_field are
+        ``io.timeforce.TimeInterpField`` (or None to leave a row)."""
+        from ...io.timeforce import restoring_stf
+        o = self.cfg.ocean
+        stf = restoring_stf(forcing.stf, state.t[:, 0], sst_field,
+                            sss_field, relyr, o.dampts, o.dampdz,
+                            self.tmask[0])
+        return dataclasses.replace(forcing, stf=stf)
+
+    def run_restoring(self, state: OceanState, smf,
+                      sst_field=None, sss_field=None, nseg: int = 1,
+                      seg_days: float = 30.0, relyr0: float = 0.0,
+                      yrlen: float = 365.0,
+                      climatology: str = "seasonal") -> OceanState:
+        """Ocean-only production driver with Newtonian surface
+        restoring (O_restorst, data.F:119-142): each segment
+        interpolates the SST/SSS climatology at the segment midpoint,
+        converts it to surface fluxes against the state entering the
+        segment (setvbc restoring path), and runs the segment's steps
+        through ``run_scan`` (CUDA-graph replays on the card, which read
+        each segment's fluxes from their forcing buffers).  This is the
+        classic spin-up configuration of the reference (restoring run
+        before coupling).
+
+        smf : (2, jmt, imt) wind stress; sst_field/sss_field :
+        io.timeforce.TimeInterpField or None (then the ``climatology``,
+        "seasonal" or "bcest", provides both).
+        """
+        from ...io.timeforce import (TimeInterpField,
+                                     default_surface_climatology)
+        np_dtype = self.cfg.np_dtype
+        if sst_field is None and sss_field is None:
+            if climatology == "bcest":
+                # annual-mean Levitus/H&R zonal estimates (bcest.F) —
+                # the reference's idealized standalone-ocean restoring
+                from ...io.bcest import bcest_fields
+                f = bcest_fields(self.params.grid, dtype=np_dtype)
+                sst_field = TimeInterpField(f["sst"][None], dtype=np_dtype,
+                                            device=self.device)
+                sss_field = TimeInterpField(
+                    (f["sss"][None] - 35.0) / 1000.0, dtype=np_dtype,
+                    device=self.device)
+            else:
+                sst_field, sss_field = default_surface_climatology(
+                    self.params.grid, dtype=np_dtype, device=self.device)
+        nsteps = max(1, round(seg_days * 86400.0 / self.cfg.ocean.dtts))
+        stf0 = torch.zeros((self.nt,) + tuple(smf.shape[1:]),
+                           dtype=self.dtype, device=self.device)
+        relyr = relyr0
+        for _ in range(nseg):
+            mid = relyr + 0.5 * seg_days / yrlen
+            forcing = make_forcing(smf, stf0, relyr=mid)
+            forcing = self.apply_restoring(forcing, state, sst_field,
+                                           sss_field, relyr=mid)
+            state = self.run_scan(state, forcing, nsteps)
+            relyr += seg_days / yrlen
         return state
 
     def run_scan(self, state: OceanState, forcing: SurfaceForcing,

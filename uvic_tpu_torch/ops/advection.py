@@ -1,8 +1,10 @@
-"""Tracer advective fluxes: upstream and FCT (Zalesak, dlm1), torch.
+"""Tracer advective fluxes: centered, upstream and FCT (Zalesak, dlm1),
+torch.
 
-Port of the FCT path of ``uvic_tpu.ops.advection``
-(source/mom/tracer_adv_flx.F:376-1005, O_fct with the dlm1
-one-dimensional delimiters).  Flux conventions follow the reference:
+Port of the centered scheme and the FCT path of
+``uvic_tpu.ops.advection`` (source/mom/tracer_adv_flx.F:376-1070, O_fct
+with the dlm1 one-dimensional delimiters).  Flux conventions follow the
+reference:
 
 - all fluxes are *2x* the physical flux (the 1/2 lives in the metric
   factors cstdxt2r/cstdyt2r/dzt2r, fdift.h:25-39),
@@ -18,6 +20,16 @@ import torch
 
 from ..constants import EPSLN
 from .stencil import DN, E, N, S, UP, W, setbcx
+
+
+def centered_flux(t_tau, vet, vnt, vbt):
+    """2nd-order centered fluxes at tau (tracer_adv_flx.F:1007-1070 and the
+    ADV_Ty statement function, fdift.h:34-36)."""
+    fe = vet * (t_tau + E(t_tau))
+    fn = vnt * (t_tau + N(t_tau))
+    fb = vbt * (t_tau + DN(t_tau))   # bottom face of cell k
+    fb[..., -1, :, :] = 0.0
+    return fe, fn, fb
 
 
 def upstream_flux(t, vet, vnt, vbt):

@@ -72,13 +72,34 @@ def _stable_labels(ts, kmt, eos_c, eos_to, eos_so, dztxcl):
     return label
 
 
+def region_reference(mnorm):
+    """(km, jmt, imt) index of each level's reference level: the first l
+    with M[k, l] != 0, the top of the level's mixed region (k itself where
+    the row is zero, on land)."""
+    nz = mnorm != 0
+    km = mnorm.shape[0]
+    own = torch.arange(km, device=mnorm.device).reshape(km, 1, 1)
+    return torch.where(nz.any(1), nz.to(mnorm.dtype).argmax(1),
+                       own.expand(mnorm.shape[1:]).clone())
+
+
 def apply_region_means_ref(ts, mnorm, ocean):
-    """Plain version of the kernel: out[n, k] = sum_l M[k, l] ts[n, l]
-    on ocean cells, in the kernel's summation order."""
-    out = mnorm[:, 0][None] * ts[:, 0][:, None]
+    """Plain version of the kernel, in its summation order: on ocean
+    cells out[n, k] = r + sum_l M[k, l] (ts[n, l] - r), with r the
+    tracer at the top of k's region (``region_reference``); ts
+    elsewhere.  With M's rows summing to one this is sum_l M[k, l]
+    ts[n, l], but a row's float32 sum misses one by a rounding, the same
+    in a column at every step, which applied to the whole value drifts
+    the mixed tracers (~8e-8 K a step in the flagship's mean SST);
+    against r it weighs only the spread within the region, and every
+    level of a region computes the same numbers, so that the region
+    stays homogeneous."""
+    lref = region_reference(mnorm)
+    r = torch.gather(ts, 1, lref[None].expand(ts.shape[0], -1, -1, -1))
+    out = mnorm[:, 0][None] * (ts[:, 0][:, None] - r)
     for l in range(1, ts.shape[1]):
-        out = out + mnorm[:, l][None] * ts[:, l][:, None]
-    return torch.where(ocean[None] > 0, out, ts)
+        out = out + mnorm[:, l][None] * (ts[:, l][:, None] - r)
+    return torch.where(ocean[None] > 0, r + out, ts)
 
 
 def region_means_launch(nt, km, jmt, imt):

@@ -24,7 +24,7 @@ import torch
 from ..cuda import LIBRARY, check_cuda, launch, ptr
 from .advection import fct_flux
 from .stencil import DN, E, N, S, UP, W, setbcx
-from .tridiag import invtri
+from .tridiag import invtri_columns
 
 MAX_THREADS = 256           # csrc/tracer_step.cu MAXNT
 SMEM_LIMIT = 232448         # bytes of shared memory a block may use
@@ -158,10 +158,8 @@ def fct_tracer_step_ref(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf,
 
     # implicit part of the vertical diffusion (tracer.F:899, ivdift:1691)
     if aidif > 0.0:
-        t_new = torch.stack([
-            invtri(t_new[n], stf[n], btf[n], diff_cbt, kf[0], kmt, tmask,
-                   kf[2], kf[4], kf[5], aidif)
-            for n in range(t_new.shape[0])])
+        t_new = invtri_columns(t_new, stf, btf, diff_cbt, kf[0], kmt, tmask,
+                               kf[2], kf[4], kf[5], aidif)
     return setbcx(t_new, True)
 
 
