@@ -56,11 +56,12 @@ Phases (each failure ends the run with a non-zero exit code):
    wrappers' counters, read across each capture).
 5. The main path at nt=41, the full-MOBI flagship: the MOBI sources,
    float32 on the card against float64 on the CPU on the 34x40x8 MOBI
-   grid (plain versions); `run_scan` over N_SCAN steps from the primed
-   state (capture, instantiation, replay times, CG iterations, one
+   grid (plain versions); `run_scan` over N_SCAN41 steps from the primed
+   state set to itt nmix - 2, so that its third step is a mixing step
+   (capture, instantiation, replay times, CG iterations, one
    launch of each kernel captured in each graph); two
    eager steps with run_scan's semantics from its state after
-   N_SCAN - 2 steps (a mixing step and a leapfrog step; the launch
+   N_SCAN41 - 2 steps (a mixing step and a leapfrog step; the launch
    counters must read 2) equal to their replay bitwise; every field
    finite.
 6. The coupled earth segment: ``CoupledModel(earth_config(),
@@ -177,7 +178,8 @@ Phases (each failure ends the run with a non-zero exit code):
    Last, ``debug.bisect_segment`` on phase 6's earth model: ok on its
    restart, and on a copy with the thickest ice cell's hice set to NaN
    not ok, in phase "atm_ice substep 0".
-11. torch.profiler, last (a session taken after an earlier one and ~1e5
+11. torch.profiler, last but the options (a session taken after an
+   earlier one and ~1e5
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
@@ -186,6 +188,30 @@ Phases (each failure ends the run with a non-zero exit code):
    replayed step (profiled again, up to REPLAY_SESSIONS times, when the
    profiler lost a kernel's record; see check_replay_counts); then the
    device activities of one replayed and one eager earth segment.
+12. The ocean options, after the profiler (the first profiler session
+   taken after this phase recorded no device activity).  Three flagship
+   models (``entry._flagship`` with
+   OPTION_MODELS' options on top: 102x102x19, float32) that between
+   them set every option of the reference's OceanModel but the rigid-lid
+   surface pressure and the upstream and centered schemes: for each, the
+   kernels its path runs held against their plain versions on the
+   inputs of a leapfrog and a mixing step with phase 2's noise and
+   tolerances (B1 only where the step takes the fused tracer step, B3
+   only under full convection, and neither launched elsewhere; B2 on
+   each distinct operator of the model, the 9-point, implicit-Coriolis
+   and free-surface ones among them, compared after the step's own
+   removal of the operator's null space, with its iterations from the
+   captured guess and from zero); with Euler-backward mixing, one EB
+   mixing step launching each kernel of the path twice, and `run` over
+   a leapfrog and a mixing step launching it 3 (EB) or 2 times;
+   run_scan over N_SCAN steps equal to the same steps taken eagerly,
+   bitwise, each graph holding the path's launches of each kernel; one
+   OPTION_RESTORING_DAYS segment of `run_restoring` replaying the same
+   graphs; every field finite.  Then every option alone in the small form of phase 3
+   (SMALL_OPTIONS, the rigid lid, upstream and centered among them):
+   float32 on the card against float64 on the CPU within TOL_SMALL, and
+   for SMALL_KERNEL_CHECKS the kernels held against their plain
+   versions as above.
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
@@ -200,8 +226,12 @@ graph's counted replays times its captured launches); `nt41` the phase
 inputs, `earth_bgc` the phase 8 readings on the earth carbon cycle's
 inputs, `earth_accel` the phase 9 readings on the accelerated inputs,
 `earth_brine` the apply's on the brine path, `restoring` the phase 10
-readings on the restoring step's inputs) and the result line
-{"ok": true, "device": {...}}.
+readings on the restoring step's inputs, `options` the phase 12
+readings by option model, the CG's by operator, and `launches_by_path`
+the option models' launches a step, eager and per replayed step, and of
+an Euler-backward mixing step) and the result line {"ok": true,
+"device": {...}}.  Each phase's end prints its seconds (``phase N: ...
+s``), and the line before the card's name all of them.
 
 With --times the script builds the flagship and the full-MOBI flagship
 and captures the kernels' inputs as in phase 2, then prints one JSON
@@ -239,6 +269,7 @@ WATCHDOG_S = 600
 GOLDEN_YEAR_S = 75              # --golden-years: more watchdog a year
 N_STEPS = 20
 N_SCAN = 17                     # run_scan steps: nmix + 1, a mixing step
+N_SCAN41 = 4                    # nt=41 run_scan steps from itt nmix - 2
 N_WARM = 3
 N_TIMED = 30
 GRAPH_REPS = 20
@@ -287,6 +318,11 @@ NOISE_BGC = 0.05
 TOL_TRACER = 3e-5
 TOL_CONVECT = 1.5e-5
 TOL_CG_TOLRSF = 10.0
+# phase 12's solves: where 10 x the solver's tolerance is below what
+# float32 resolves in the solution (the free surface: tolrfs 1e-4 on
+# pressures ~5e4, whose ulp is ~4e-3), the limit is this share of the
+# solution's largest magnitude, ~84 float32 ulps
+TOL_CG_REL = 1e-5
 TOL_SMALL = dict(t=1e-4, u=1e-4, psi0=1e-3)
 TOL_MOBI_SRC_CPU_DRIFT = 2.2e-4
 TOL_MOBI_SRC = 2e-3
@@ -321,7 +357,7 @@ EARTH_SEGMENTS = 2
 EARTH_BARE = 4
 EARTH_YEAR = 72
 EARTH_SPLIT = 2
-EARTH_TRANSIENT = 4
+EARTH_TRANSIENT = 2
 EARTH_AWIND = 2
 # the output intervals of the run that wrote the golden stream
 # (scripts/run_production.py's defaults) [days]
@@ -372,7 +408,7 @@ ACCEL = 4.0
 SPINUP_START = "earth_accept"
 SPINUP_GOLDEN = "golden/regression/spinup_earth_year.json"
 EARTH_ACCEL_SEGMENTS = 2
-EARTH_OPTION_SEGMENTS = 2
+EARTH_OPTION_SEGMENTS = 1
 EARTH_OPTION_BARE = 2
 EARTH_OPTIONS = {
     "cpts": ("ice", dict(cpts=3)),
@@ -418,6 +454,56 @@ RESTORING_WARMER = 1.0          # K added to the climatology's SST
 TMM_SPACING = (3, 5, 5)
 TOL_TOOLS = dict(regions=1e-5, xbt=1e-5, section=0.0, zonal=1e-5,
                  tmm_exp=1e-5, tmm_imp=1e-5)
+# The ocean options (phase 12): three flagship models (102x102x19,
+# float32, entry._flagship with options on top) that between them set
+# every option the reference's OceanModel takes but the surface-pressure
+# rigid lid and the upstream and centered schemes, which run in the
+# small form of phase 3 with every other option.  Expected launches of
+# each kernel a step follow from each model's routing (B1 only where the
+# reference takes its fused kernel, B3 only under full convection).
+OPTION_MODELS = {
+    # B1 with walls and the full tensor's Redi tendency as its source,
+    # B3, B2 on the 9-point operator; Euler-backward mixing steps
+    "walls_fulltensor_eb": dict(
+        ocean=dict(vmix="ppmix", shortwave=True, neptune=True, sf_npt=9,
+                   hlat_filter="fourier", eb=True, full_tensor=True),
+        grid=dict(cyclic=False)),
+    # the generic tracer step, ncon convection, B2 on the implicit
+    # Coriolis operators
+    "dlm2_fct3d_smagnl_ncon_acor": dict(
+        ocean=dict(fct_variant="dlm2", fct_3d=True, hmix="smagnl",
+                   convection="ncon", acor=0.5)),
+    # B2 on the free surface's operators (no islands), B3
+    "ifs_quicker_biharmonic": dict(
+        ocean=dict(barotropic="implicit_free_surface",
+                   tracer_advection="quicker", hmix="biharmonic")),
+}
+OPTION_RESTORING_DAYS = 2.5     # a run_restoring segment of each model
+SMALL_OPTIONS = {
+    "quicker": dict(tracer_advection="quicker"),
+    "centered": dict(tracer_advection="centered"),
+    "upstream": dict(tracer_advection="upstream"),
+    "dlm2": dict(fct_variant="dlm2"),
+    "fct_3d": dict(fct_3d=True),
+    "smagnl": dict(hmix="smagnl"),
+    "biharmonic": dict(hmix="biharmonic", ambi=1.0e21, ahbi=5.0e20),
+    "ppmix": dict(vmix="ppmix"),
+    "ncon": dict(convection="ncon"),
+    "surface_pressure": dict(barotropic="surface_pressure"),
+    "implicit_free_surface": dict(barotropic="implicit_free_surface"),
+    "sf_npt_9": dict(sf_npt=9),
+    "acor": dict(acor=0.5),
+    "fourier": dict(hlat_filter="fourier"),
+    "shortwave": dict(shortwave=True),
+    "neptune": dict(neptune=True),
+    "full_tensor": dict(full_tensor=True),
+    "eb": dict(eb=True),
+    "walls": dict(),
+}
+SMALL_GRID = {"walls": dict(cyclic=False)}
+# small-form options whose kernels are also held against their plain
+# versions on the card (the rigid lid's B2 runs at full width nowhere)
+SMALL_KERNEL_CHECKS = ("surface_pressure",)
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -876,6 +962,7 @@ def convect_inputs(seen):
     import torch
     from uvic_tpu_torch.ops.convection import region_mixing_matrix
     ts, kmt, eos_c, eos_to, eos_so, dztxcl = seen["convect"]
+    ts = ts.contiguous()              # as convct_full passes it
     km = ts.shape[1]
     mnorm = region_mixing_matrix(ts, kmt, eos_c, eos_to, eos_so,
                                  dztxcl).contiguous()
@@ -1082,8 +1169,10 @@ def check_cg(m, seen):
     return out["warm"]
 
 
-def small_reference():
-    """Flagship physics on a small grid: card f32 vs CPU f64, 4 steps."""
+def small_reference(ocean=None, grid=None, label="", models=None):
+    """Flagship physics on a small grid, with the options ``ocean`` and
+    ``grid`` on top: card f32 vs CPU f64, 4 steps (a mixing step and 3
+    leapfrog steps).  ``models`` (a dict) receives the two models."""
     import dataclasses
     import numpy as np
     import torch
@@ -1095,7 +1184,9 @@ def small_reference():
         cfg = small_config(imt=40, jmt=34, km=8).replace(dtype=dtype)
         cfg = cfg.replace(ocean=dataclasses.replace(
             cfg.ocean, isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
-            gthflx=True, aniso_visc=True, aniso_zonal=True))
+            gthflx=True, aniso_visc=True, aniso_zonal=True, **(ocean or {})))
+        if grid:
+            cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, **grid))
         m = make_ocean(cfg, device=device)
         g = m.params.grid
         rng = np.random.default_rng(0)
@@ -1116,12 +1207,26 @@ def small_reference():
         for _ in range(3):
             s = m.step(s, f, leapfrog=True)
         out[device] = ocean_state_to_numpy(s)
-    for name, tol in TOL_SMALL.items():
+        if models is not None:
+            models[device] = (m, s, f)
+    tols = dict(TOL_SMALL)
+    if m.sp_mode:
+        tols["ubar"] = TOL_SMALL["psi0"]    # the external mode's velocity
+    rels = {}
+    for name, tol in tols.items():
         a, b = out["cuda"][name], out["cpu"][name]
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
-        say(f"  {name}: rel err {rel:.3e} (tolerance {tol})")
+        rels[name] = rel
+        if not label:
+            say(f"  {name}: rel err {rel:.3e} (tolerance {tol})")
         if not (np.isfinite(a).all() and rel <= tol):
-            raise AssertionError(f"small reference: {name} rel err {rel}")
+            raise AssertionError(f"small reference {label}: {name} rel err "
+                                 f"{rel} > {tol}")
+    if label:
+        say(f"  {label}: rel err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rels.items()) + " (tolerances "
+            + ", ".join(f"{k} {v:g}" for k, v in tols.items()) + ")")
+    return rels
 
 
 def mobi_small_inputs(m):
@@ -1262,10 +1367,11 @@ def check_replay_counts(m, state, forcing, label):
     return per_step
 
 
-def scan_vs_eager(m, state, forcing, nsteps, label):
+def scan_vs_eager(m, state, forcing, nsteps, label, per_step=None):
     """``run_scan`` from ``state`` against the same steps taken eagerly
-    with run_scan's semantics (launch counters reset before them):
-    bitwise.  Returns (eager end state, eager wall ms per step, counts)."""
+    with run_scan's semantics (launch counters reset before them, each
+    kernel's launches ``per_step`` of it a step, by default 1): bitwise.
+    Returns (eager end state, eager wall ms per step, counts)."""
     import torch
     from uvic_tpu_torch.ops.cg_kernel import congrad_launch
     from uvic_tpu_torch.ops.convection import apply_region_means
@@ -1285,9 +1391,10 @@ def scan_vs_eager(m, state, forcing, nsteps, label):
               "apply_region_means": apply_region_means.launches,
               "congrad": congrad_launch.launches}
     for k, c in counts.items():
-        if c != nsteps:
+        want = nsteps * (1 if per_step is None else per_step[k])
+        if c != want:
             raise AssertionError(f"{label} eager: {k} launched {c} times in "
-                                 f"{nsteps} steps")
+                                 f"{nsteps} steps, {want} expected")
     r = m.run_scan(state, forcing, nsteps)
     torch.cuda.synchronize()
     diff = same_state(r, e)
@@ -1310,12 +1417,12 @@ def timed_scan(m, state, forcing, nsteps):
     return r, (time.perf_counter() - t0) * 1e3 / nsteps
 
 
-def say_graphs(m, label):
+def say_graphs(m, label, per_step=None):
     """Capture and instantiation times of the model's two graphs, and
     the kernel nodes each holds: the launches each wrapper made while
     its graph was captured (counted by the wrappers, not the profiler),
-    which must be exactly one of each kernel.  Returns {kernel:
-    {"leapfrog": n, "mixing": n}}."""
+    which must be exactly ``per_step`` of each kernel (by default one).
+    Returns {kernel: {"leapfrog": n, "mixing": n}}."""
     g = m._graphs
     say(f"  graphs: capture {g.capture_s[True]:.2f} s (leapfrog), "
         f"{g.capture_s[False]:.2f} s (mixing); instantiation "
@@ -1326,10 +1433,11 @@ def say_graphs(m, label):
     say(f"  kernel launches captured per step type: "
         f"{json.dumps(per_kernel)}")
     for k, by_kind in per_kernel.items():
+        want = 1 if per_step is None else per_step[k]
         for kind, c in by_kind.items():
-            if c != 1:
+            if c != want:
                 raise AssertionError(f"{label} {kind} graph holds {c} "
-                                     f"launches of {k}")
+                                     f"launches of {k}, {want} expected")
     return per_kernel
 
 
@@ -2837,11 +2945,322 @@ def restoring_phase(earth):
     return out
 
 
+def option_launches(m):
+    """Launches of each kernel one step of the model makes: B1 where the
+    step takes the fused tracer step, B3 under full convection, B2
+    always (one solve a step)."""
+    return {"fct_tracer_step": int(m.fused_tracer),
+            "apply_region_means": int(m.cfg.ocean.convection == "full"),
+            "congrad": 1}
+
+
+def capture_option_step(m, state, forcing, leapfrog):
+    """One step of an option model (run_scan's semantics, no
+    Euler-backward) with the kernel wrappers' arguments recorded:
+    ``tracer`` and ``convect`` as ``capture_step``, and ``cg`` the list
+    of (solver, arguments) of every barotropic solve."""
+    import uvic_tpu_torch.models.ocean.model as model_mod
+    from uvic_tpu_torch.ops.cg_kernel import CGSolver
+    seen = {"convect_calls": [], "cg": []}
+    tracer, convect, call = (model_mod.fct_tracer_step,
+                             model_mod.convct_full, CGSolver.__call__)
+
+    def rec_tracer(*a, **k):
+        seen["tracer"] = (a, k)
+        return tracer(*a, **k)
+
+    def rec_convect(*a):
+        seen["convect"] = a
+        seen["convect_calls"].append(a)
+        return convect(*a)
+
+    def rec_call(solver, *a):
+        seen["cg"].append((solver, a))
+        return call(solver, *a)
+
+    model_mod.fct_tracer_step = rec_tracer
+    model_mod.convct_full = rec_convect
+    CGSolver.__call__ = rec_call
+    try:
+        state = m._step(state, forcing, leapfrog=leapfrog, scan=True)
+    finally:
+        model_mod.fct_tracer_step = tracer
+        model_mod.convct_full = convect
+        CGSolver.__call__ = call
+    return state, seen
+
+
+def solution_projection(m):
+    """The projection the model's step applies to a barotropic solution,
+    which removes what the operator leaves undetermined: the checkerboard
+    of the 9-point streamfunction operator (tropic_step's deflation), the
+    checkerboard and the mean of the rigid lid's (checkerboard_remove,
+    zero_level); None where the operator determines the solution."""
+    import torch
+    from uvic_tpu_torch.ops.solvers import border
+    g, cyc = m.g, m.cyclic
+    if m.sp_mode:
+        if m.barotropic != "surface_pressure":
+            return None
+        from uvic_tpu_torch.models.ocean.surfpress import (
+            checkerboard_remove, zero_level)
+        return lambda x: border(zero_level(
+            border(checkerboard_remove(x, m.sp_omask), cyc), m.sp_omask,
+            g.dxt, g.dyt, g.cst), cyc)
+    if m.cfg.ocean.sf_npt != 9:
+        return None
+    from uvic_tpu_torch.models.ocean.tropic import checkerboard_weights
+    w = checkerboard_weights(*m.cf_unit.shape[-2:], m.dtype, m.device)
+    return lambda x: x - (torch.sum(x * w) / torch.sum(w * w)) * w
+
+
+def check_cg_solve(solver, args, label, project=None):
+    """One captured barotropic solve of any operator (the unit operator
+    with 1/c2dtsf, or a step's whole operator called with c2dtsf 1): the
+    kernel against its plain version, and the iterations of both from the
+    captured guess and from zero.  Where the operator has a null space
+    beyond the constant the CG deflates, the two solutions are compared
+    after ``project``, the step's own removal of it (the raw gap is
+    printed too)."""
+    import torch
+    from uvic_tpu_torch.ops.cg_kernel import (congrad_cuda, congrad_launch,
+                                              congrad_ref)
+    guess, forc, c2dtsf, tol = args
+    jmt, imt = guess.shape
+    iters = {}
+    for case, g0 in (("warm", guess), ("zero", torch.zeros_like(guess))):
+        got, info = congrad_launch(solver, g0, forc, c2dtsf, tol)
+        ref, it_ref = congrad_ref(solver.cf_unit, solver.isl, g0, forc,
+                                  c2dtsf, tol, solver.max_iter,
+                                  solver.cyclic)
+        torch.cuda.synchronize()
+        it_got, ctas, it_ref = int(info[0]), int(info[1]), int(it_ref)
+        raw = ""
+        if project is not None:
+            raw = f" (before the step's projection {rel_err(got, ref)[0]:.3e})"
+            got, ref = project(got), project(ref)
+        err, rel = rel_err(got, ref)
+        limit = max(TOL_CG_TOLRSF * tol,
+                    TOL_CG_REL * float(ref.abs().max()))
+        say(f"  {label}, {case} guess: {solver.isl.nisle} islands, c2dtsf "
+            f"{c2dtsf:g}; dpsi max abs err {err:.3e}{raw} (rel {rel:.3e}, "
+            f"tol {tol:.1e}, limit {limit:.3e}); iterations kernel "
+            f"{it_got}, plain {it_ref}")
+        if not err <= limit:
+            raise AssertionError(f"{label}: err {err} > {limit}")
+        if not abs(it_got - it_ref) <= max(3, 0.1 * it_ref):
+            raise AssertionError(f"{label}: iterations {it_got} vs {it_ref}")
+        if not (it_got < solver.max_iter or it_ref >= solver.max_iter):
+            raise AssertionError(f"{label}: the CG kernel did not converge "
+                                 "where its plain version did")
+        iters[case] = (it_got, it_ref)
+        if case == "warm":
+            err_warm, cluster = err, ctas
+
+    def kernel():
+        return congrad_cuda(solver, guess, forc, c2dtsf, tol)
+
+    ms = cuda_time_ms(kernel)
+    dev_ms = device_ms(kernel)
+    plain_ms = cuda_time_ms(
+        lambda: congrad_ref(solver.cf_unit, solver.isl, guess, forc, c2dtsf,
+                            tol, solver.max_iter, solver.cyclic), n=5, warm=1)
+    plane = jmt * imt
+    nbytes = 4 * (9 + 1 + 1 + 2 + 1) * plane
+    b_ms, b_by = bound(nbytes, 48.0 * plane * iters["warm"][0])
+    say(f"  {label}: {ms:.4f} ms, device time {dev_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    return dict(name="congrad", max_abs_err=err_warm, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bytes=nbytes, device_ms=dev_ms,
+                cluster=cluster, iters=iters["warm"][0],
+                iters_zero=iters["zero"][0], c2dtsf=float(c2dtsf))
+
+
+def check_option_kernels(m, state, forcing, label):
+    """The kernels of one option model's path held against their plain
+    versions on the inputs of a leapfrog and a mixing step from the state
+    with phase 2's noise: B1 and B3 where the path runs them (and not
+    launched where it does not), B2 on each distinct operator."""
+    want = option_launches(m)
+    noisy = perturbed(m, state)
+    _, seen = capture_option_step(m, noisy, forcing, True)
+    _, seen_mix = capture_option_step(m, noisy, forcing, False)
+    out = {}
+    for key, got in (("fct_tracer_step", "tracer" in seen),
+                     ("apply_region_means", "convect" in seen)):
+        if got != bool(want[key]):
+            raise AssertionError(f"{label}: {key} called {got}, expected "
+                                 f"{bool(want[key])}")
+    if want["fct_tracer_step"]:
+        say(f" {label}: fct_tracer_step")
+        out["tracer"] = check_tracer(m, seen, f"{label} tracer step")
+    if want["apply_region_means"]:
+        say(f" {label}: apply_region_means")
+        out["convect"] = check_convect(seen)
+    solves = [("leapfrog", seen["cg"]), ("mixing", seen_mix["cg"])]
+    done = {}
+    for kind, calls in solves:
+        if len(calls) != 1:
+            raise AssertionError(f"{label} {kind}: {len(calls)} solves")
+        solver, args = calls[0]
+        if id(solver) in done:
+            say(f"  {label}: the {kind} step solves with the "
+                f"{done[id(solver)]} step's operator")
+            continue
+        done[id(solver)] = kind
+        out["cg" if kind == "leapfrog" else "cg_mixing"] = check_cg_solve(
+            solver, args, f"{label} congrad, {kind} operator",
+            solution_projection(m))
+    for k in out.values():
+        k.pop("per_call_fn", None)
+    return out
+
+
+def option_model_phase(name, spec):
+    """Phase 12 for one option model: the flagship with ``spec``'s
+    options, its kernels against their plain versions, an
+    Euler-backward mixing step's launches, run_scan against the same
+    steps taken eagerly (bitwise) with its graphs' launches, and every
+    field finite."""
+    import gc
+    import torch
+    from uvic_tpu_torch.entry import _flagship
+    from uvic_tpu_torch.ops.cg_kernel import congrad_launch
+    from uvic_tpu_torch.ops.convection import apply_region_means
+    from uvic_tpu_torch.ops.tracer_kernel import fct_tracer_step
+    t0 = time.perf_counter()
+    m, state, forcing = _flagship(ocean=spec["ocean"], grid=spec.get("grid"))
+    g = m.params.grid
+    say(f" {name}: {g.imt}x{g.jmt}x{g.km}, {m.dtype}, options "
+        f"{json.dumps(spec)}; built and primed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _ in range(N_WARM):
+        state = m.step(state, forcing, leapfrog=True)
+    want = option_launches(m)
+    out = check_option_kernels(m, state, forcing, name)
+    counts = {}
+    if m.cfg.ocean.eb:
+        fct_tracer_step.launches = 0
+        apply_region_means.launches = 0
+        congrad_launch.launches = 0
+        eb = m.step(dataclasses.replace(state, itt=m.cfg.ocean.nmix),
+                    forcing, leapfrog=False)
+        torch.cuda.synchronize()
+        counts["eb_mixing_step"] = {
+            "fct_tracer_step": fct_tracer_step.launches,
+            "apply_region_means": apply_region_means.launches,
+            "congrad": congrad_launch.launches}
+        say(f"  {name}: an Euler-backward mixing step launched "
+            f"{json.dumps(counts['eb_mixing_step'])}")
+        for k, c in counts["eb_mixing_step"].items():
+            if c != 2 * want[k]:
+                raise AssertionError(f"{name}: EB mixing step launched {k} "
+                                     f"{c} times, {2 * want[k]} expected")
+        check_finite(eb, f"{name} EB mixing step")
+    # `run` over a leapfrog and a mixing step (Euler-backward where set)
+    nmix = m.cfg.ocean.nmix
+    fct_tracer_step.launches = 0
+    apply_region_means.launches = 0
+    congrad_launch.launches = 0
+    ran = m.run(dataclasses.replace(state, itt=nmix - 1), forcing, 2)
+    torch.cuda.synchronize()
+    counts["run_two_steps"] = {
+        "fct_tracer_step": fct_tracer_step.launches,
+        "apply_region_means": apply_region_means.launches,
+        "congrad": congrad_launch.launches}
+    mix = 2 if m.cfg.ocean.eb else 1
+    say(f"  {name}: run over itt {nmix - 1}..{nmix} launched "
+        f"{json.dumps(counts['run_two_steps'])}")
+    for k, c in counts["run_two_steps"].items():
+        if c != (1 + mix) * want[k]:
+            raise AssertionError(f"{name}: run launched {k} {c} times, "
+                                 f"{(1 + mix) * want[k]} expected")
+    check_finite(ran, f"{name} run")
+    say(f"  {name}: run_scan, {N_SCAN} steps from itt {state.itt}; "
+        f"launches a step {json.dumps(want)}")
+    e, eager_ms, eager = scan_vs_eager(m, state, forcing, N_SCAN, name,
+                                       per_step=want)
+    counts["eager_per_step"] = {k: c // N_SCAN for k, c in eager.items()}
+    captured = say_graphs(m, name, per_step=want)
+    counts["run_per_step"] = {k: v["leapfrog"] for k, v in captured.items()}
+    r, scan_ms = timed_scan(m, state, forcing, N_SCAN)
+    if same_state(r, e) != 0.0:
+        raise AssertionError(f"{name}: a second run_scan differs")
+    check_finite(r, f"{name} run_scan")
+    scan_iters = m.scan_cg_iters.tolist()
+    # one restoring segment of OPTION_RESTORING_DAYS on the same graphs
+    graphs, replays = m._graphs, sum(m._graphs.replays.values())
+    rr = m.run_restoring(r, forcing.smf, nseg=1,
+                         seg_days=OPTION_RESTORING_DAYS)
+    torch.cuda.synchronize()
+    nrest = sum(m._graphs.replays.values()) - replays
+    say(f"  {name}: run_restoring, one {OPTION_RESTORING_DAYS:g}-day "
+        f"segment: {nrest} replays of the same graphs "
+        f"{m._graphs is graphs}")
+    if m._graphs is not graphs or nrest != round(
+            OPTION_RESTORING_DAYS * 86400.0 / m.cfg.ocean.dtts):
+        raise AssertionError(f"{name}: run_restoring did not replay the "
+                             "model's graphs")
+    check_finite(rr, f"{name} run_restoring")
+    ext = r.ubar if m.sp_mode else r.psi0
+    say(f"  {name}: eager step {eager_ms:.3f} ms, replayed {scan_ms:.3f} ms;"
+        f" CG iterations {scan_iters}; |t| max "
+        f"{float(r.t.abs().max()):.4f}, |u| max {float(r.u.abs().max()):.4f},"
+        f" |{'ubar' if m.sp_mode else 'psi'}| max "
+        f"{float(ext.abs().max()):.4e}; {time.perf_counter() - t0:.1f} s")
+    out.update(counts=counts, eager_ms=eager_ms, replay_ms=scan_ms)
+    del m, state, r, e
+    gc.collect()
+    return out
+
+
+def options_phase():
+    """Phase 12: the option models at full width, then every option in
+    phase 3's small form (the card's float32 against the CPU's float64),
+    the rigid lid's B2 held against its plain version there."""
+    res = {name: option_model_phase(name, spec)
+           for name, spec in OPTION_MODELS.items()}
+    say(" every option in the small form of phase 3 (34x40x8, the "
+        "flagship physics and the option; card f32 vs CPU f64, a mixing "
+        "step and 3 leapfrog steps)")
+    small = {}
+    for name, ocean in SMALL_OPTIONS.items():
+        models = {}
+        small[name] = small_reference(ocean, SMALL_GRID.get(name),
+                                      label=name, models=models)
+        if name in SMALL_KERNEL_CHECKS:
+            m, s, f = models["cuda"]
+            res[f"small_{name}"] = check_option_kernels(m, s, f,
+                                                        f"small {name}")
+    res["small"] = small
+    return res
+
+
+
+PHASE_CLOCK = []     # (number, start) of the phase that runs
+PHASE_S = {}         # seconds of each finished phase, by number
+
+
+def phase(title):
+    """Print the seconds of the phase that ends (``phase N: ... s``) and
+    the title of the one that starts (None: the last has ended)."""
+    now = time.perf_counter()
+    if PHASE_CLOCK:
+        n, t0 = PHASE_CLOCK.pop()
+        PHASE_S[n] = now - t0
+        say(f"phase {n}: {now - t0:.1f} s")
+    if title is not None:
+        PHASE_CLOCK.append((title.split(":")[0].split()[1], now))
+        say(title)
+
+
 def main(argv):
     if len(argv) == 2 and argv[0] == "--golden-gaps":
         return golden_gaps_of(argv[1])
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
+    PHASE_CLOCK.append(("0", t_start))
     card = card_line()
     say(card)
 
@@ -2876,7 +3295,7 @@ def main(argv):
     say(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-    say("phase 1: build")
+    phase("phase 1: build")
     LIBRARY.get()
     say(f"  kernels built/loaded in {LIBRARY.build_seconds:.1f} s")
     for line in LIBRARY.build_log.splitlines():
@@ -2886,7 +3305,7 @@ def main(argv):
         if spill and int(spill.group(1)) > 0:
             raise AssertionError("a kernel spills: " + line.strip())
 
-    say("phase 2: kernels against their plain versions, flagship shapes")
+    phase("phase 2: kernels against their plain versions, flagship shapes")
     m, state, forcing, seen = flagship_inputs()
     say(" fct_tracer_step")
     k_tracer = check_tracer(m, seen)
@@ -2918,10 +3337,10 @@ def main(argv):
                      ("nt=41", k_tracer41), ("nt=41", k_convect41)):
         say_kernel(label, k)
 
-    say("phase 3: small-input reference, f32 card vs f64 CPU")
+    phase("phase 3: small-input reference, f32 card vs f64 CPU")
     small_reference()
 
-    say(f"phase 4: main path, {N_STEPS} flagship leapfrog steps")
+    phase(f"phase 4: main path, {N_STEPS} flagship leapfrog steps")
     fct_tracer_step.launches = 0
     apply_region_means.launches = 0
     congrad_launch.launches = 0
@@ -2963,20 +3382,21 @@ def main(argv):
     _, eager2_ms, _ = scan_vs_eager(m, state, forcing, N_SCAN, "nt=2")
     say(f"  the same steps eagerly: {eager2_ms:.3f} ms a step (median)")
 
-    say("phase 5: main path at nt=41, the full-MOBI flagship")
+    phase("phase 5: main path at nt=41, the full-MOBI flagship")
     say("  MOBI sources, 34x40x8, f32 card vs f64 CPU")
     mobi_small_reference()
-    say(f"  run_scan, nt=41: {N_SCAN} steps from itt {s41.itt}")
-    r41, first41_ms = timed_scan(m41, s41, f41, N_SCAN)
+    s41 = dataclasses.replace(s41, itt=m41.cfg.ocean.nmix - 2)
+    say(f"  run_scan, nt=41: {N_SCAN41} steps from itt {s41.itt}")
+    r41, first41_ms = timed_scan(m41, s41, f41, N_SCAN41)
     captured41 = say_graphs(m41, "nt=41")
     say(f"  first call {first41_ms:.1f} ms a step with the capture; CG "
         f"iterations per step: {m41.scan_cg_iters.tolist()}")
-    r41b, scan41_ms = timed_scan(m41, s41, f41, N_SCAN)
+    r41b, scan41_ms = timed_scan(m41, s41, f41, N_SCAN41)
     if same_state(r41, r41b) != 0.0:
         raise AssertionError("nt=41 run_scan: two replays differ")
     check_finite(r41, "the nt=41 run_scan")
     say(f"  replayed MOBI step {scan41_ms:.1f} ms")
-    mid = m41.run_scan(s41, f41, N_SCAN - 2)
+    mid = m41.run_scan(s41, f41, N_SCAN41 - 2)
     _, eager41_ms, eager41 = scan_vs_eager(m41, mid, f41, 2, "nt=41")
     say(f"  eager MOBI step {eager41_ms:.1f} ms (median of 2); launch "
         f"counters {json.dumps(eager41)}")
@@ -2986,7 +3406,7 @@ def main(argv):
         f"{float(r41.t[idx['dic']].max()):.4f}, |psi| max "
         f"{float(r41.psi0.abs().max()):.4e}")
 
-    say("phase 6: the coupled earth segment from the year-1060 restart, "
+    phase("phase 6: the coupled earth segment from the year-1060 restart, "
         "and a year of it through the port's Run")
     earth = earth_phase()
     for key in ("tracer", "convect", "cg"):
@@ -2995,11 +3415,11 @@ def main(argv):
         f"{earth['replay_ms']:.1f} ms, inside Run {earth['run_ms']:.1f} ms "
         "(medians)")
 
-    say("phase 7: transient forcing and anomalous winds on the earth model, "
+    phase("phase 7: transient forcing and anomalous winds on the earth model, "
         "eager against replayed")
     transient_phase()
 
-    say("phase 8: the earth carbon cycle (MOBI gas exchange and virtual "
+    phase("phase 8: the earth carbon cycle (MOBI gas exchange and virtual "
         "fluxes, pore-water sediments) under transient forcing, and a month "
         "of it through the port's Run")
     bgc = earth_bgc_phase()
@@ -3010,7 +3430,7 @@ def main(argv):
         f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
         "(medians)")
 
-    say("phase 9: the spin-up and the coupled options")
+    phase("phase 9: the spin-up and the coupled options")
     opts = spinup_options_phase()
     for key in ("tracer", "convect", "cg"):
         opts[key].pop("per_call_fn", None)
@@ -3027,7 +3447,7 @@ def main(argv):
             f"captures {r['capture_s']:.2f} s, instantiations "
             f"{r['instantiate_s']:.2f} s")
 
-    say("phase 10: the ocean-only restoring run (OceanModel.run_restoring) "
+    phase("phase 10: the ocean-only restoring run (OceanModel.run_restoring) "
         "of the flagship, its tooling (regions, sections, the transport "
         "matrix) and the NaN bisector")
     rest = restoring_phase(earth)
@@ -3040,10 +3460,12 @@ def main(argv):
         f"years a day); extract_matrices {rest['tmm_card_s']:.2f} s on the "
         f"card, {rest['tmm_cpu_s']:.2f} s on the CPU in float64")
 
-    # All profiler sessions come last: on the card, a torch.profiler
-    # session taken after an earlier session and ~1e5 eager launches in
-    # between recorded no device activity at all (PyTorch 2.11).
-    say("phase 11: torch.profiler counts")
+    # The profiler sessions come after every other phase but the ocean
+    # options: on the card, a torch.profiler session taken after an
+    # earlier session and ~1e5 eager launches in between recorded no
+    # device activity at all (PyTorch 2.11), and so did the first
+    # session taken after the options phase; that phase takes none.
+    phase("phase 11: torch.profiler counts")
     checked = (("nt=2", k_tracer), ("nt=2", k_convect), ("nt=2", k_cg),
                ("nt=2 non-isopycnal", k_plain_form), ("nt=41", k_tracer41),
                ("nt=41", k_convect41))
@@ -3062,6 +3484,10 @@ def main(argv):
     say(f"  device activities of one earth segment: "
         f"{json.dumps(earth_dev)} (graph nodes of a replayed segment: "
         f"{earth['graph_nodes']})")
+    phase("phase 12: the ocean options at full width (three flagship "
+          "models with options on top) and every option in the small form")
+    optres = options_phase()
+
     by_path = {k: {"nt2_eager": launches[k],
                    "nt2_run_scan_per_step": captured2[k],
                    "nt41_eager": eager41[k],
@@ -3085,7 +3511,10 @@ def main(argv):
                       for o in EARTH_OPTIONS},
                    "restoring_eager_per_segment": rest["eager_counts"][k],
                    "restoring_run_per_segment": rest["run_counts"][k],
-                   "restoring_year_by_replays": rest["year_counts"][k]}
+                   "restoring_year_by_replays": rest["year_counts"][k],
+                   **{f"options_{o}_{kind}": c[k]
+                      for o, r in optres.items() if "counts" in r
+                      for kind, c in r["counts"].items()}}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -3147,6 +3576,18 @@ def main(argv):
             "bound_by", "library_ms")}
         if "iters" in kr:
             entry["restoring"]["iters"] = kr["iters"]
+        entry["options"] = {}
+        for o, r in optres.items():
+            for key in {"fct_tracer_step": ("tracer",),
+                        "apply_region_means": ("convect",),
+                        "congrad": ("cg", "cg_mixing")}[k["name"]]:
+                if key in r:
+                    entry["options"][o + ("_mixing" if key == "cg_mixing"
+                                          else "")] = {
+                        f: r[key][f] for f in (
+                            "max_abs_err", "ms", "device_ms", "plain_ms",
+                            "bound_ms", "bound_by", "library_ms", "iters",
+                            "iters_zero") if f in r[key]}
         if k["name"] == "apply_region_means":
             kbr = opts["brine_convect"]
             entry["earth_brine"] = {key: kbr[key] for key in (
@@ -3166,6 +3607,9 @@ def main(argv):
         f"({EARTH_BGC_MONTH} segments against {EARTH_BGC_GOLDEN}); "
         f"restoring segment replayed {rest['seg_ms']:.1f} ms "
         f"({RESTORING_SEGMENTS} segments against {RESTORING_GOLDEN})")
+    phase(None)
+    say("phase seconds: " + json.dumps(
+        {n: round(t, 1) for n, t in PHASE_S.items()}))
     say(f"total {time.perf_counter() - t_start:.1f} s "
         f"(watchdog {WATCHDOG_S} s)")
     say(card)

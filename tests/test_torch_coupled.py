@@ -13,7 +13,8 @@ From ``earth_accept/restart.npz`` (year 1060, the start of
   the means that pass the state through a threshold (named below);
 - a restart written by the port reads back through
   ``uvic_tpu.io.restart`` bitwise, and the other way round;
-- the ocean options the port does not implement raise.
+- the ocean options off the flagship path: their constants and a mixing
+  step, on a small grid.
 
 The EMBM solves run to convergence in both packages (``solver_tol``
 1e-13, 1000 trips): with the configuration's own float64 settings the
@@ -226,20 +227,66 @@ def test_tsi_writer_rows(runs, tmp_path):
 
 @pytest.mark.parametrize("option", ["shortwave", "neptune", "eb",
                                     "tracer_advection", "barotropic"])
-def test_unported_options_raise(option):
-    """The coupled model refuses the ocean options the port does not
-    implement yet (``models/ocean/model.py:_check_supported``); the
-    coupled ice options and brine convection all run
-    (``test_torch_coupled_options.py``,
-    ``test_torch_coupled_ice_options.py``)."""
-    cfg = ModelConfig()
+def test_coupled_ocean_options_match_jax(option):
+    """The coupled model takes every ocean option through its
+    ``OceanModel`` (the coupled ice options and brine convection:
+    ``test_torch_coupled_options.py``,
+    ``test_torch_coupled_ice_options.py``).  On ``small_config`` in
+    float64, both packages' coupled models with the option: the option's
+    constants of their oceans (the shortwave profile, the Neptune
+    velocity, the surface-pressure operator, its free-surface centre and
+    its zu filter's rows) bitwise, and one mixing step of their oceans
+    (Euler-backward with ``eb``) from the same state to 1e-9."""
+    from uvic_tpu.config import small_config as j_small_config
+    from uvic_tpu.models.ocean.model import make_forcing as j_make_forcing
+    from uvic_tpu_torch.config import small_config
+    from uvic_tpu_torch.models.ocean.model import make_forcing
     value = dict(shortwave=True, neptune=True, eb=True,
                  tracer_advection="upstream",
                  barotropic="surface_pressure")[option]
-    cfg = cfg.replace(ocean=dataclasses.replace(cfg.ocean,
-                                                **{option: value}))
-    with pytest.raises(NotImplementedError, match=option):
-        CoupledModel(cfg, device="cpu")
+    models = []
+    for small, cls, kw in ((j_small_config, JCoupled, {}),
+                           (small_config, CoupledModel,
+                            dict(device="cpu"))):
+        cfg = small().replace(dtype="float64")
+        cfg = cfg.replace(ocean=dataclasses.replace(
+            cfg.ocean, isopycmix=False, gent_mcwilliams=False,
+            tolrsp=1e-12, mxscan=2000, **{option: value}))
+        models.append(cls(cfg, **kw).ocean)
+    jo, to = models
+    consts = dict(shortwave=("divpen",), neptune=("unep",),
+                  barotropic=("cf_sp", "fs_diag_unit", "sp_omask"))
+    for name in consts.get(option, ()):
+        np.testing.assert_array_equal(getattr(to, name).numpy(),
+                                      np.asarray(getattr(jo, name)),
+                                      err_msg=name)
+    if option == "barotropic":
+        np.testing.assert_array_equal(to.filt_zu.rows.numpy(),
+                                      jo.filt_zu.rows)
+        np.testing.assert_array_equal(to.filt_zu.mats.numpy(),
+                                      np.asarray(jo.filt_zu.mats))
+    g = jo.params.grid
+    rng = np.random.default_rng(2)
+    t0 = np.zeros((2, g.km, g.jmt, g.imt))
+    t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None] \
+        + 0.1 * rng.standard_normal(t0[0].shape)
+    t0 *= np.asarray(jo.params.topo.tmask)
+    smf = 0.5 * rng.standard_normal((2, g.jmt, g.imt))
+    stf = np.zeros((jo.nt, g.jmt, g.imt))
+    js = jo.step(jo.init_state(t0), j_make_forcing(jnp.asarray(smf),
+                                                   jnp.asarray(stf)),
+                 leapfrog=False)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ts = to.step(to.init_state(t0), make_forcing(torch.as_tensor(smf),
+                                                     torch.as_tensor(stf)),
+                     leapfrog=False)
+    finally:
+        torch.set_num_threads(threads)
+    for name in ("t", "u", "psi0", "ptd", "ubar"):
+        _close(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
+               f"{option} {name}")
 
 
 def test_coupled_model_needs_a_card_unless_asked(monkeypatch):

@@ -39,8 +39,8 @@ def _system(cfg, topo_kind="world"):
     it, without stepping the model."""
     p = build_ocean_params(cfg, topo_kind=topo_kind)
     g, topo = p.grid, p.topo
-    cf = sfc5pt_unit(np.asarray(g.dxu), np.asarray(g.dyu),
-                     np.asarray(g.csu), np.asarray(topo.hr))
+    cf, _ = sfc5pt_unit(np.asarray(g.dxu), np.asarray(g.dyu),
+                        np.asarray(g.csu), np.asarray(topo.hr))
     isl = IslandIndex(perim_id=torch.as_tensor(topo.perim_id,
                                                dtype=torch.int64),
                       nisle=topo.nisle,
@@ -146,7 +146,9 @@ def test_flagship_shared_memory_and_grid_fit_the_card(flagship):
 def congrad_banded(cf_unit, isl, layout, guess, forc, c2dtsf, tol,
                    max_iter):
     """The cluster kernel's sequence of operations in plain PyTorch: the
-    Pallas kernel's algorithm, every reduction taken band by band and
+    Pallas kernel's algorithm (the iterate starting from border(guess)
+    undeflated, as ops/solvers.congrad), every reduction taken band by
+    band and
     the band partials summed in rank order, the deflation dot product of
     the iterate taken with the residual's island sums.  Returns
     (dpsi, iters)."""
@@ -207,7 +209,6 @@ def congrad_banded(cf_unit, isl, layout, guess, forc, c2dtsf, tol,
     w = bord((zpre != 0).to(dt))
     ww = bsum(w * w * interior)
     dpsi = bord(guess)
-    dpsi = dpsi - (bsum(dpsi * w * interior) / ww) * w
     res = bord(forc * interior - op(dpsi))
     dr = bsum(res * w * interior) / ww
     dpw = bsum(dpsi * w * interior)

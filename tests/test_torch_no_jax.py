@@ -48,7 +48,10 @@ def test_every_module_imports_without_jax():
             "uvic_tpu_torch.spinup", "uvic_tpu_torch.io.timeforce",
             "uvic_tpu_torch.io.bcest", "uvic_tpu_torch.io.regrid",
             "uvic_tpu_torch.diag.regions", "uvic_tpu_torch.diag.sections",
-            "uvic_tpu_torch.diag.tmm", "uvic_tpu_torch.debug"} <= set(MODULES)
+            "uvic_tpu_torch.diag.tmm", "uvic_tpu_torch.debug",
+            "uvic_tpu_torch.models.ocean.hmix",
+            "uvic_tpu_torch.models.ocean.neptune",
+            "uvic_tpu_torch.models.ocean.surfpress"} <= set(MODULES)
     out = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *MODULES], cwd=ROOT,
         capture_output=True, text=True, timeout=300)

@@ -127,8 +127,16 @@ def test_small_flagship_entry_runs_on_the_cpu():
 @pytest.mark.parametrize("option", [dict(hmix="smagnl"),
                                     dict(convection="ncon"),
                                     dict(hlat_filter="fourier")])
-def test_unported_options_raise(option):
-    cfg = t_small_config()
-    cfg = cfg.replace(ocean=dataclasses.replace(cfg.ocean, **option))
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        t_make_ocean(cfg, device="cpu")
+def test_options_step_like_jax(option):
+    """Options off the flagship path (``tests/torch_option_runs.py``):
+    3 steps from itt 0, a mixing step first, agree with the reference to
+    1e-9 (``test_torch_ocean_options*.py`` take every option)."""
+    from torch_option_runs import assert_close, step_both
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        hist = step_both(option, nsteps=3)
+    finally:
+        torch.set_num_threads(threads)
+    for n, (ref, got) in enumerate(hist):
+        assert_close(ref, got, f"{option} step {n}")

@@ -185,7 +185,7 @@ def test_clinic_step(models, fields, aniso):
     got = t_kernels.clinic_step(
         T(u), T(um1), T(rho), tveu, tvnu, tvbu, T(smf), T(bmf),
         tm.visc_cbu, tm.kmu, tm.umask, tm.g, c2dtuv, True,
-        aniso=tm.aniso_visc if aniso else None)
+        hmix=("aniso",) + tuple(tm.aniso_visc) if aniso else None)
     for a, b in zip(got, ref):
         close(a, b)
 

@@ -3,10 +3,9 @@ and its centered tracer step against ``uvic_tpu``, on the CPU in float64.
 
 The small ocean of ``tests/test_tmm.py`` (34x34x8, isopycnal mixing off,
 dtts 3,600 s) after 10 steps of the reference model, the state carried
-into the port.  The port's model step has no centered advection (the
-ocean options are ROADMAP Queue A item 2), so both packages' models
-take FCT for their own steps; the extraction's sweep is the centered
-tracer step in both, whatever the model's scheme.
+into the port.  Both packages' models take FCT for their own steps; the
+extraction's sweep is the centered tracer step in both, whatever the
+model's scheme.
 
 - ``make_tiles``: bitwise equal;
 - ``extract_matrices`` at the reference test's spacing (3, 4, 4), the
@@ -18,8 +17,9 @@ tracer step in both, whatever the model's scheme.
 - the reference test's two properties: A @ x equals the port's centered
   tracer step's tendency, and the implicit operator's rows sum to 1;
 - the centered ``tracer_step`` with surface and bottom fluxes, a source,
-  and the implicit vertical diffusion (aidif 0.5) to 1e-12; the branches
-  not ported raise.
+  and the implicit vertical diffusion (aidif 0.5) to 1e-12; and the
+  FCT, upstream and QUICKER schemes and the isopycnal and Smagorinsky
+  branches to 1e-12.
 """
 
 import dataclasses
@@ -204,11 +204,43 @@ def test_centered_tracer_step_matches_jax(models):
                 tm.cyclic)
             _close(got.numpy(), np.asarray(ref), rtol=1e-12,
                    label=f"source {src is not None}, aidif {aidif}")
-    args = (torch.as_tensor(t_tau), torch.as_tensor(t_tm1), *tv,
+    # the other schemes and the isopycnal and Smagorinsky branches (the
+    # ocean options), each against the reference's tracer_step
+    from uvic_tpu.models.ocean import hmix as j_hmix
+    from uvic_tpu.models.ocean import isopyc as j_isopyc
+    from uvic_tpu.ops.advection import quicker_coefficients
+    from uvic_tpu_torch.models.ocean import hmix as t_hmix
+    from uvic_tpu_torch.models.ocean import isopyc as t_isopyc
+    qc = quicker_coefficients(g)
+    jm.g.quicker = {ax: {k: jnp.asarray(v) for k, v in d.items()}
+                    for ax, d in qc.items()}
+    tm.g.quicker = {ax: {k: torch.as_tensor(v) for k, v in d.items()}
+                    for ax, d in qc.items()}
+    ju = jnp.asarray(u)
+    tu = torch.tensor(u)
+    j_iso = j_isopyc.compute_isopyc(jnp.asarray(t_tm1), jm.tmask, jm.kmt,
+                                    jm.eos_c, jm.eos_to, jm.eos_so, jm.g,
+                                    jm.cfg.ocean, jm.cyclic)
+    t_iso = t_isopyc.compute_isopyc(torch.as_tensor(t_tm1), tm.tmask,
+                                    tm.kmt, tm.eos_c, tm.eos_to, tm.eos_so,
+                                    tm.g, tm.cfg.ocean, tm.cyclic)
+    rj = j_hmix.smagnl_coefficients(ju, jm.g, jm.cyclic)
+    rt = t_hmix.smagnl_coefficients(tu, tm.g, tm.cyclic)
+    j_smag = ("smagnl",) + j_hmix.smag_tracer_coefficients(rj[1], rj[2])
+    t_smag = ("smagnl",) + t_hmix.smag_tracer_coefficients(rt[1], rt[2])
+    for scheme, jkw, tkw in (("fct", {}, {}), ("upstream", {}, {}),
+                             ("quicker", {}, {}),
+                             ("centered", dict(iso=j_iso),
+                              dict(iso=t_iso)),
+                             ("centered", dict(hmix=j_smag),
+                              dict(hmix=t_smag))):
+        ref = j_kernels.tracer_step(
+            jnp.asarray(t_tau), jnp.asarray(t_tm1), *jv, jnp.asarray(stf),
+            jnp.asarray(btf), None, jm.diff_cbt, jm.kmt, jm.tmask, jm.g,
+            7200.0, scheme, 0.5, jm.cyclic, **jkw)
+        got = t_kernels.tracer_step(
+            torch.as_tensor(t_tau), torch.as_tensor(t_tm1), *tv,
             torch.as_tensor(stf), torch.as_tensor(btf), None, tm.diff_cbt,
-            tm.kmt, tm.tmask, tm.g, 7200.0)
-    for scheme, kw in (("fct", {}), ("upstream", {}), ("quicker", {}),
-                       ("centered", dict(iso=object())),
-                       ("centered", dict(hmix=("smagnl", None, None)))):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
-            t_kernels.tracer_step(*args, scheme, 0.0, tm.cyclic, **kw)
+            tm.kmt, tm.tmask, tm.g, 7200.0, scheme, 0.5, tm.cyclic, **tkw)
+        _close(got.numpy(), np.asarray(ref), rtol=1e-12,
+               label=f"{scheme} {sorted(jkw)}")

@@ -6,9 +6,13 @@
 // congrad.F (Dukowicz, Smith & Malone 1993) in the Pallas kernel's
 // sequence of operations: 9-point operator at unit timestep scaled by
 // 1/c2dtsf, diagonal preconditioner, island sum/average redistribution
-// over perimeter cells, constant-mode deflation of the initial iterate,
-// the residuals and the result, and the geometric-series
-// error-extrapolation stop (congrad.F:62-105).
+// over perimeter cells, constant-mode deflation of the residuals and the
+// result, and the geometric-series error-extrapolation stop
+// (congrad.F:62-105).  The iterate starts from border(guess) itself, as
+// in ops/solvers.congrad: the constant is a null vector of the curl-form
+// streamfunction operator on a cyclic grid, not where the active set
+// meets a wall nor of the free-surface operator, so deflating the guess
+// would change their problem.
 //
 // What bounds it: latency.  The 102x102 solve moves ~0.5 MB and does
 // ~1 MFLOP per iteration; its time is the chain of dependent global
@@ -264,36 +268,28 @@ __global__ void __launch_bounds__(NT, 1) congrad_cluster_kernel(Args a) {
   cl.sync();
 
   auto none = [](int) { return 0.f; };
-  // deflated border(guess) at a global cell: the same expression for own
-  // and halo rows
-  auto dpsi0 = [&](size_t c, float dr) {
-    int sg = a.src[c];
-    float d = sg >= 0 ? a.guess[sg] : 0.f;
-    float wv = (sg >= 0 && a.zpre[sg] != 0.f) ? 1.f : 0.f;
-    return d - dr * wv;
-  };
 
-  // ---- setup: ww and the deflation of border(guess) -------------------
+  // ---- setup: ww ------------------------------------------------------
   float ww, dr;
   {
-    float v[2] = {0.f, 0.f};
+    float v[1] = {0.f};
     for (int l = tid; l < n; l += NT) {
       if (b.srcl(l) == l) {
         float wl = b.w[l];
         v[0] += wl * wl;
-        v[1] += dpsi0(g0 + l, 0.f) * wl;
       }
     }
-    b.reduce<2, false>(v, 0u, none);
+    b.reduce<1, false>(v, 0u, none);
     ww = v[0];
-    dr = v[1] / ww;
   }
-  // dpsi with its halo rows in sb[1]; res = deflate(border(forc - A dpsi))
+  // dpsi = border(guess) with its halo rows in sb[1];
+  // res = deflate(border(forc - A dpsi))
   float* sh = b.sb[1];
   for (int l = tid - imt; l < n + imt; l += NT) {
     long c = (long)g0 + l;
     if (c < 0 || c >= (long)plane) continue;
-    float d = dpsi0((size_t)c, dr);
+    int sg = a.src[c];
+    float d = sg >= 0 ? a.guess[sg] : 0.f;
     sh[l + imt] = d;
     if (l >= 0 && l < n) b.dpsi[l] = d;
   }

@@ -7,7 +7,8 @@
 // isopycnal mixing is on), explicit vertical diffusion with surface and
 // bottom fluxes, the Redi/GM tendency from the 18-slot weight stack,
 // the source add, the aidif implicit Thomas solve (invtri.F) and the
-// cyclic setbcx.  Reference: source/mom/tracer.F:678-916,
+// setbcx, cyclic or with solid zonal walls (``cyclic`` 0: the two
+// boundary columns of t_lo, of the x ratios and of the output are zero).  Reference: source/mom/tracer.F:678-916,
 // tracer_adv_flx.F:376-1005, invtri.F:1-115.
 //
 // What bounds it: bytes, in principle.  At the flagship shape (nt=2,
@@ -96,6 +97,7 @@ struct Args {
   int nt, km, jmt, imt;
   float aidif;
   int fluxform;
+  int cyclic;     // 1: cyclic setbcx; 0: solid walls (boundary columns zero)
 };
 
 // rows of the shared-memory window, each imt floats
@@ -186,6 +188,13 @@ struct Win {
   // level factors, copied to shared memory: global loads in the march
   // would miss the small L1 that the maximal shared carveout leaves
   __device__ float kfac(int q, int k) const { return kfs[q * KMAX + k]; }
+
+  // the column whose values column i carries after setbcx: its mirror
+  // when cyclic, itself otherwise (zeroed on a wall, is_wall)
+  __device__ int column(int i) const { return a.cyclic ? mirror(i, imt) : i; }
+  __device__ bool is_wall(int i) const {
+    return !a.cyclic && (i == 0 || i == imt - 1);
+  }
 
   // ---- fetches: thread i copies column i of each row ----------------
   __device__ size_t at(int k, int r) const {   // global offset of (k, row of r, 0)
@@ -304,12 +313,14 @@ struct Win {
   // are stored after all loads.
   __device__ void make_ratios(int k, int i, int h) const {
     const float twodt = kfac(0, k);
-    const int ic = mirror(i, imt);
-    const float tl2 = t_lo(k, 2, ic);
-    const float tlb = t_lo(k, h == 0 ? 1 : 3, ic);
+    const int ic = column(i);
+    // a solid wall's boundary column: t_lo and the x ratios are zero there
+    const bool wall = is_wall(i);
+    const float tl2 = wall ? 0.f : t_lo(k, 2, ic);
+    const float tlb = wall ? 0.f : t_lo(k, h == 0 ? 1 : 3, ic);
     float xpl = 0.f, xmn = 0.f, zpl = 0.f, zmn = 0.f;
     float ypl[2] = {0.f, 0.f}, ymn[2] = {0.f, 0.f};   // rows 1, 2 (half 0) or 3
-    if (h == 0) {
+    if (h == 0 && !wall) {
       int iw = wrap(ic - 1, imt), ie = wrap(ic + 1, imt);
       const float* m = MK(k, 2);
       const float* t = TT(k, 2);
@@ -454,7 +465,7 @@ __global__ void __launch_bounds__(MAXNT, 2) fct_tracer_kernel(Args a) {
   if (col) v.make_ratios(0, i, h);
 
   // the column this thread computes: the output's setbcx
-  const int ic = col ? mirror(i, W) : 0;
+  const int ic = col ? v.column(i) : 0;
   const int iw = wrap(ic - 1, W), ie = wrap(ic + 1, W);
   const int c2 = j * W + ic;
   const float stf = col ? a.stf[n * plane + c2] : 0.f;
@@ -588,6 +599,8 @@ __global__ void __launch_bounds__(MAXNT, 2) fct_tracer_kernel(Args a) {
   } else {
     for (int k = km - 1; k >= 0; --k) o[(size_t)k * plane] = tz[k * ncol];
   }
+  if (v.is_wall(i))
+    for (int k = 0; k < km; ++k) o[(size_t)k * plane] = 0.f;
 }
 
 }  // namespace
@@ -613,11 +626,12 @@ extern "C" int uvic_fct_tracer_step(
     const float* vbt, const float* tmask, const float* dcb, const float* stf,
     const float* btf, const float* src, const float* isow, const float* twodt,
     const float* kf, const float* jif, const int* kmt, float* out,
-    int nt, int km, int jmt, int imt, float aidif, int fluxform, void* stream) {
+    int nt, int km, int jmt, int imt, float aidif, int fluxform, int cyclic,
+    void* stream) {
   int nth = 2 * ((imt + 31) / 32 * 32);
   if (km < 2 || km > KMAX || imt < 3 || nth > MAXNT) return (int)cudaErrorInvalidValue;
   Args a{t_tau, tm1, vet, vnt, vbt, tmask, dcb, stf, btf, src, isow, twodt, kf,
-         jif, kmt, out, nt, km, jmt, imt, aidif, fluxform};
+         jif, kmt, out, nt, km, jmt, imt, aidif, fluxform, cyclic};
   size_t bytes = tracer_smem_bytes(km, imt);
   cudaError_t err = set_attributes(bytes);
   if (err != cudaSuccess) return (int)err;

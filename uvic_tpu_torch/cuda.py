@@ -30,7 +30,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the kernels' launch functions (see csrc/*.cu)
 _SIGNATURES = {
-    "uvic_fct_tracer_step": [_P] * 16 + [_I] * 4 + [_F, _I, _P],
+    "uvic_fct_tracer_step": [_P] * 16 + [_I] * 4 + [_F, _I, _I, _P],
     "uvic_congrad": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
     "uvic_congrad_max_clusters": [_I, _I],
     "uvic_fct_tracer_blocks_per_sm": [_I, _I],

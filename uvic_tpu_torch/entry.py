@@ -10,7 +10,8 @@ step.  ``mobi=True`` adds the full MOBI suite (``mobi_full()``, 41
 tracers): the initial condition is the same 2-tracer one, extended to 41
 by ``init_state`` with the registry's defaults.  ``small=True`` gives
 the light 34x40x8 configuration of the JAX entry (isopycnal/GM mixing
-off).
+off).  ``ocean`` and ``grid`` (dicts of ``OceanConfig`` / ``GridConfig``
+fields) set options on top, as ``cfg.replace(ocean=...)`` does.
 
 ``_earth`` builds the coupled production configuration,
 ``CoupledModel(earth_config(), topo_kind="earth")`` (the model that
@@ -32,8 +33,10 @@ from .config import ModelConfig, earth_config, mobi_full, small_config
 from .models.ocean.model import make_forcing, make_ocean
 
 
-def _flagship(small=False, device=None, dtype="float32", mobi=False):
-    """(model, primed state, forcing) of the flagship configuration."""
+def _flagship(small=False, device=None, dtype="float32", mobi=False,
+              ocean=None, grid=None):
+    """(model, primed state, forcing) of the flagship configuration,
+    with the options ``ocean`` and ``grid`` on top."""
     if small:
         cfg = small_config(imt=40, jmt=34, km=8)
         cfg = cfg.replace(dtype=dtype, ocean=dataclasses.replace(
@@ -46,6 +49,10 @@ def _flagship(small=False, device=None, dtype="float32", mobi=False):
             aniso_zonal=True))
     if mobi:
         cfg = cfg.replace(bgc=mobi_full())
+    if ocean:
+        cfg = cfg.replace(ocean=dataclasses.replace(cfg.ocean, **ocean))
+    if grid:
+        cfg = cfg.replace(grid=dataclasses.replace(cfg.grid, **grid))
     m = make_ocean(cfg, device=device)
     g = m.params.grid
     t0 = np.zeros((2, g.km, g.jmt, g.imt))

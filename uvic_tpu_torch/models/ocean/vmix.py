@@ -1,8 +1,9 @@
-"""Vertical mixing coefficients: Bryan-Lewis profile and tidal mixing.
+"""Vertical mixing coefficients: Bryan-Lewis profile, Pacanowski &
+Philander Richardson-number mixing and tidal mixing.
 
-Port of the flagship parts of ``uvic_tpu.models.ocean.vmix``
-(source/mom/vmixc.F; O_tidal_kv from updates/08).  Coefficients are at
-cell bottoms, (km, jmt, imt).
+Port of ``uvic_tpu.models.ocean.vmix`` (source/mom/vmixc.F, ppmix.F;
+O_tidal_kv from updates/08).  Coefficients are at cell bottoms,
+(km, jmt, imt).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import numpy as np
 import torch
 
 from ...constants import GRAV
+from ...ops.eos import dens
+from ...ops.stencil import E, N, S, W, setbcx
 
 
 def bryan_lewis_profile(zw_cm, afkph=0.8, dfkph=1.05, sfkph=4.5e-5,
@@ -18,6 +21,65 @@ def bryan_lewis_profile(zw_cm, afkph=0.8, dfkph=1.05, sfkph=4.5e-5,
     """Bryan-Lewis vertical diffusivity Ahv(k) [cm^2/s]: an arctangent
     profile increasing from ~0.3 at the surface to ~1.3 at depth."""
     return afkph + (dfkph / np.pi) * np.arctan(sfkph * (zw_cm - zfkph))
+
+
+def ppmix_coefficients(t_tracers, u_full, tmask, umask, eos_c, eos_to,
+                       eos_so, g, fricmx=50.0, wndmix=10.0,
+                       visc_cbu_back=1.0, diff_cbt_back=0.1,
+                       visc_cbu_limit=None, diff_cbt_limit=1.0e6,
+                       cyclic=True):
+    """Pacanowski-Philander Richardson mixing (ppmix.F:202-420).
+
+    Returns (diff_cbt, visc_cbu) at cell bottoms.
+    """
+    if visc_cbu_limit is None:
+        visc_cbu_limit = fricmx
+    km = t_tracers.shape[1]
+    T, Ssal = t_tracers[0], t_tracers[1]
+    # density difference across cell bottoms, lower-level reference
+    # coefficients (statec semantics)
+    c_dn = eos_c[1:][:, None, None, :]
+    to_dn = eos_to[1:][:, None, None]
+    so_dn = eos_so[1:][:, None, None]
+    rho_up = dens(c_dn, T[:-1] - to_dn, Ssal[:-1] - so_dn)
+    rho_dn = dens(c_dn, T[1:] - to_dn, Ssal[1:] - so_dn)
+    rhom1z = (rho_up - rho_dn) * tmask[1:]            # (km-1, j, i)
+
+    du = u_full[0][:-1] - u_full[0][1:]
+    dv = u_full[1][:-1] - u_full[1][1:]
+    uzsq = du ** 2 + dv ** 2                           # at U cells
+
+    # Richardson number at bottom of T cells: average the 4 surrounding
+    # U-cell shears (ppmix.F:336-346)
+    shear = uzsq + W(uzsq) + S(uzsq) + S(W(uzsq)) + 1.0e-25
+    dzw_k = g.dzw[1:km].reshape(km - 1, 1, 1)
+    rit = (-4.0 * GRAV) * dzw_k * rhom1z / shear
+    t2 = 1.0 / (1.0 + 5.0 * rit)
+    diff_cbt = (fricmx * t2 ** 3 + diff_cbt_back) * tmask[1:]
+    visc_cbt = (fricmx * t2 ** 2 + visc_cbu_back) * tmask[1:]
+
+    # gravitational instability -> large coefficients (ppmix.F:354-362)
+    unstable = rhom1z > 0.0
+    diff_cbt = torch.where(unstable, torch.full_like(diff_cbt,
+                                                     diff_cbt_limit),
+                           diff_cbt)
+    visc_cbt = torch.where(unstable, torch.full_like(visc_cbt,
+                                                     visc_cbu_limit),
+                           visc_cbt)
+    visc_cbt = setbcx(visc_cbt, cyclic)
+
+    # viscosity at U-cell bottoms: 4-point average (ppmix.F:370-378)
+    visc_cbu = 0.25 * (visc_cbt + E(visc_cbt) + N(visc_cbt)
+                       + N(E(visc_cbt))) * umask[1:]
+
+    # wind-mixing floor at the first interface; zero bottom flux
+    diff_cbt[0] = torch.maximum(diff_cbt[0], wndmix * tmask[1])
+    visc_cbu[0] = torch.maximum(visc_cbu[0], wndmix * umask[1])
+
+    pad = torch.zeros_like(diff_cbt[:1])
+    diff_cbt = torch.cat([diff_cbt, pad], dim=0)
+    visc_cbu = torch.cat([visc_cbu, pad], dim=0)
+    return setbcx(diff_cbt, cyclic), setbcx(visc_cbu, cyclic)
 
 
 def tidal_kv_diff(drodzb, kmt, zw_cm, tlat_deg, edr, base_diff,

@@ -1,6 +1,9 @@
-"""Complete convective adjustment (O_fullconvect), torch.
+"""Convective adjustment: complete (O_fullconvect) and the standard
+alternating-pair scheme, torch.
 
-Port of ``convct_full`` of ``uvic_tpu.ops.convection`` (convct2,
+``convct_ncon`` ports the standard scheme of ``uvic_tpu.ops.convection``
+(convect.F:1-97): ``ncon`` passes of pair mixing in alternating parity,
+vectorized over all columns.  ``convct_full`` ports ``convct_full`` (convct2,
 convect.F:99-311, Rahmstorf 1993): every level starts as its own region,
 adjacent regions merge wherever their thickness-weighted means are
 statically unstable at the interface, and the merging iterates to a
@@ -38,6 +41,45 @@ def _region_means(ts, label, w):
     sum_tw = torch.einsum("kl...,nl...->nk...", same, ts * w)
     sum_w = torch.einsum("kl...,l...->k...", same, wfull)
     return sum_tw / sum_w
+
+
+def _pair_density(eos_c, eos_to, eos_so, t, s):
+    """Densities of levels k and k+1 both referenced to level k+1's
+    coefficients, for all k (statec, state.F:64-131)."""
+    c_dn = eos_c[1:][:, None, None, :]
+    to_dn = eos_to[1:][:, None, None]
+    so_dn = eos_so[1:][:, None, None]
+    return (dens(c_dn, t[:-1] - to_dn, s[:-1] - so_dn),
+            dens(c_dn, t[1:] - to_dn, s[1:] - so_dn))
+
+
+def convct_ncon(ts, kmt, eos_c, eos_to, eos_so, dztxcl, ncon: int):
+    """Standard convection scheme: ``ncon`` passes of alternating-parity
+    pair mixing (convect.F:52-89).  ts is (nt, km, jmt, imt) with
+    T = ts[0], S = ts[1]; returns the adjusted tracers."""
+    km = ts.shape[1]
+    w = dztxcl.reshape(km, 1, 1)
+    kk = torch.arange(km - 1, device=ts.device).reshape(km - 1, 1, 1)
+    below_ocean = kk + 1 < kmt[None]
+
+    def one_phase(ts, parity):
+        rho_up, rho_dn = _pair_density(eos_c, eos_to, eos_so, ts[0], ts[1])
+        unstable = (rho_up > rho_dn) & (kk % 2 == parity) & below_ocean
+        mixed = (w[:-1] * ts[:, :-1] + w[1:] * ts[:, 1:]) / (w[:-1] + w[1:])
+        # a level is either the upper or the lower member of a pair in one
+        # parity phase, never both: apply both writes as one select
+        pad = torch.zeros_like(unstable[:1])
+        as_up = torch.cat([unstable, pad], dim=0)[None]
+        as_dn = torch.cat([pad, unstable], dim=0)[None]
+        padm = mixed[:, :1]
+        mix_up = torch.cat([mixed, padm], dim=1)
+        mix_dn = torch.cat([padm, mixed], dim=1)
+        return torch.where(as_up, mix_up, torch.where(as_dn, mix_dn, ts))
+
+    for _ in range(ncon):
+        for parity in (0, 1):
+            ts = one_phase(ts, parity)
+    return ts
 
 
 def _stable_labels(ts, kmt, eos_c, eos_to, eos_so, dztxcl):

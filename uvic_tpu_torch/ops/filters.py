@@ -1,18 +1,19 @@
-"""High-latitude zonal filtering, FIR variant (O_firfil), torch.
+"""High-latitude zonal filtering (O_firfil, O_fourfil), torch.
 
-Port of the FIR path of ``uvic_tpu.ops.filters``.  The reference
-stabilizes the converging meridians by filtering tracers, velocities and
-the barotropic forcing poleward of ~69 deg (tracer.F:980-993,
-clinic.F:480-493, tropic.F:136-141) with ``numflt(j)`` passes of a
-masked 3-point [.25,.5,.25] smoother applied twice per pass (filfir.F).
-The filter is linear with static coefficients per (level, row), so one
-``imt x imt`` matrix per filtered (level, row) is built on the host and
-the whole filter is one batched matmul in full float32 (see
-``uvic_tpu_torch/__init__.py``).
+Port of ``uvic_tpu.ops.filters``.  The reference stabilizes the
+converging meridians by filtering tracers, velocities and the barotropic
+forcing poleward of ~69 deg (tracer.F:980-993, clinic.F:480-493,
+tropic.F:136-141), either with ``numflt(j)`` passes of a masked 3-point
+[.25,.5,.25] smoother applied twice per pass (FIR, filfir.F) or by
+truncating a cosine, sine or full cyclic series within each ocean
+segment of a row (Fourier, filt.F/filuv.F/filtr.F).  Both are linear
+with static coefficients per (level, row), so one ``imt x imt`` matrix
+per filtered (level, row) is built on the host and the whole filter is
+one batched matmul in full float32 (see ``uvic_tpu_torch/__init__.py``).
 
 Filter parameters follow setcom.F:37-132: filtering starts poleward of
-+-69.3 deg, the pass count scale is cos(lat)/cos(67.5 deg), passes
-capped at imt/4.
++-69.3 deg, the pass count / wavenumber scale is cos(lat)/cos(67.5 deg),
+FIR passes capped at imt/4.
 """
 
 from __future__ import annotations
@@ -94,15 +95,14 @@ def _fir_row_matrix(m: np.ndarray, n: int, kind: str,
     return D @ P @ D + np.eye(imt) - D
 
 
-def build_hlat_filter(method: str, mask, lat_deg, imt: int,
-                      kind: str = "symmetric", cyclic: bool = True,
-                      dtype=torch.float64, device="cpu") -> ZonalFilter:
-    """FIR high-latitude filter (filfir.F) for mask (..., jmt, imt)."""
-    if method != "fir":
-        raise NotImplementedError(f"hlat_filter {method!r} is not ported")
-    npass_j = filter_passes(np.asarray(lat_deg), imt)
+def build_fir_filter(mask, npass_j, kind: str = "symmetric",
+                     cyclic: bool = True, dtype=torch.float64,
+                     device="cpu") -> ZonalFilter:
+    """ZonalFilter implementing filfir.F for mask (..., jmt, imt)."""
     mask = np.asarray(mask, np.float64)
+    npass_j = np.asarray(npass_j)
     rows = np.nonzero(npass_j > 0)[0]
+    imt = mask.shape[-1]
     lead = mask.shape[:-2]
     mats = np.empty(lead + (rows.size, imt, imt))
     for idx in np.ndindex(lead):
@@ -110,3 +110,117 @@ def build_hlat_filter(method: str, mask, lat_deg, imt: int,
             mats[idx + (r,)] = _fir_row_matrix(
                 mask[idx + (int(j),)], int(npass_j[j]), kind, cyclic)
     return ZonalFilter(rows, mats, dtype, device)
+
+
+def _circular_segments(oc: np.ndarray, cyclic: bool):
+    """Maximal ocean runs over interior columns 1..imt-2 of a {0,1} row,
+    joined across the zonal seam when cyclic.  Returns (full_row, [ids])
+    where ids are column-index arrays in circular order."""
+    imt = oc.size
+    inter = np.arange(1, imt - 1)
+    vals = oc[inter].astype(bool)
+    if not vals.any():
+        return False, []
+    if vals.all():
+        return True, [inter]
+    n = vals.size
+    start = None
+    segs = []
+    order = np.arange(n)
+    if cyclic and vals[0] and vals[-1]:
+        # rotate so position 0 is a land point -> no wrap to handle
+        k = int(np.nonzero(~vals)[0][0])
+        order = np.roll(order, -k)
+    v = vals[order]
+    for p in range(n):
+        if v[p] and start is None:
+            start = p
+        if start is not None and (not v[p] or p == n - 1):
+            end = p if v[p] else p - 1
+            segs.append(inter[order[start:end + 1]])
+            start = None
+    return False, segs
+
+
+def _trunc_projection(im: int, n: int, mode: str) -> np.ndarray:
+    """Projection matrix keeping ``n`` waves of a cosine (deriv-0 ends),
+    sine (zero ends) or full cyclic series on ``im`` points (filtr.F
+    header semantics)."""
+    if im == 1:
+        return np.eye(1)
+    i = np.arange(im)
+    if mode == "cosine":
+        if n >= im - 1:
+            return np.eye(im)
+        V = np.cos(np.pi * np.outer(i, np.arange(im)) / (im - 1))
+        Vi = np.linalg.inv(V)
+        return V[:, :n + 1] @ Vi[:n + 1, :]
+    if mode == "sine":
+        if n >= im:
+            return np.eye(im)
+        V = np.sin(np.pi * np.outer(i + 1, np.arange(1, im + 1)) / (im + 1))
+        Vi = np.linalg.inv(V)
+        return V[:, :n] @ Vi[:n, :]
+    # full cyclic: spectral truncation |k| <= n
+    if n >= im // 2:
+        return np.eye(im)
+    F = np.fft.fft(np.eye(im))
+    freqs = np.fft.fftfreq(im, d=1.0 / im)
+    keep = (np.abs(freqs) <= n).astype(np.float64)
+    return np.real(np.fft.ifft(keep[:, None] * F, axis=0)).T
+
+
+def _fourier_row_matrix(m: np.ndarray, cosfac: float, mode: str,
+                        cyclic: bool) -> np.ndarray:
+    imt = m.size
+    F = np.eye(imt)
+    full, segs = _circular_segments(m > 0, cyclic)
+    for ids in segs:
+        im = ids.size
+        if full and cyclic:
+            n = int(round(im * cosfac * 0.5))
+            P = _trunc_projection(im, n, "cyclic")
+        else:
+            n = int(round(im * cosfac))
+            P = _trunc_projection(im, n, mode)
+        F[np.ix_(ids, ids)] = P
+    return F
+
+
+def build_fourier_filter(mask, lat_deg, kind: str = "symmetric",
+                         cyclic: bool = True, dtype=torch.float64,
+                         device="cpu", rjft0=RJFT0, rjft1=RJFT1,
+                         rjfrst=RJFRST) -> ZonalFilter:
+    """ZonalFilter implementing filt.F/filuv.F Fourier truncation.
+
+    kind 'symmetric' -> cosine series (tracers, psi forcing, filt.F m=1);
+    kind 'asymmetric' -> sine series (velocities, filuv.F m=2); land-free
+    cyclic rows use the full series (m=3) at half the wave count.
+    """
+    mask = np.asarray(mask, np.float64)
+    lat_deg = np.asarray(lat_deg)
+    active = (np.abs(lat_deg) >= rjft1) & (lat_deg >= rjfrst)
+    rows = np.nonzero(active)[0]
+    imt = mask.shape[-1]
+    lead = mask.shape[:-2]
+    refcos = np.cos(np.deg2rad(rjft0))
+    mode = "cosine" if kind == "symmetric" else "sine"
+    mats = np.empty(lead + (rows.size, imt, imt))
+    for idx in np.ndindex(lead):
+        for r, j in enumerate(rows):
+            cosfac = max(np.cos(np.deg2rad(lat_deg[j])), 1e-10) / refcos
+            mats[idx + (r,)] = _fourier_row_matrix(
+                mask[idx + (int(j),)], cosfac, mode, cyclic)
+    return ZonalFilter(rows, mats, dtype, device)
+
+
+def build_hlat_filter(method: str, mask, lat_deg, imt: int,
+                      kind: str = "symmetric", cyclic: bool = True,
+                      dtype=torch.float64, device="cpu") -> ZonalFilter:
+    """Filter factory: method 'fir' (O_firfil) or 'fourier' (O_fourfil)
+    for mask (..., jmt, imt)."""
+    if method == "fourier":
+        return build_fourier_filter(mask, lat_deg, kind, cyclic, dtype,
+                                    device)
+    npass = filter_passes(np.asarray(lat_deg), imt)
+    return build_fir_filter(mask, npass, kind, cyclic, dtype, device)

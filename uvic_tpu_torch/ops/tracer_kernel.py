@@ -6,8 +6,8 @@ Counterpart of ``uvic_tpu/ops/pallas_tracer.py`` (the Pallas kernel
 tracer: FCT dlm1 advection, harmonic horizontal diffusion (flux form
 when isopycnal mixing is on), explicit vertical diffusion with
 surface/bottom fluxes, the Redi/GM tendency from the 18-slot weight
-stack, the source add, the aidif implicit vertical solve and the cyclic
-setbcx.  Reference: source/mom/tracer.F:678-916,
+stack, the source add, the aidif implicit vertical solve and the
+setbcx (cyclic, or solid zonal walls).  Reference: source/mom/tracer.F:678-916,
 tracer_adv_flx.F:376-1005, invtri.F:1-115.
 
 ``TracerStepConsts`` packs the static grid factors once, in the layout
@@ -53,9 +53,10 @@ class TracerStepConsts:
     jif (6, jmt, imt): cstdxt2r, cstdyt2r, cstdxtr, ah*cstdxur, and
     (yA, yB) = (ah*csu*dyur, 1/(cst*dyt)) in the flux form, else
     (ahc_north, ahc_south).
+    cyclic: the zonal boundary condition (setbcx) of the grid.
     """
 
-    def __init__(self, g, ah, aidif, ydiff_fluxform, has_iso):
+    def __init__(self, g, ah, aidif, ydiff_fluxform, has_iso, cyclic=True):
         if has_iso and not ydiff_fluxform:
             raise ValueError("iso weights require flux-form y-diffusion")
         km = g.dzt.shape[0]
@@ -63,6 +64,7 @@ class TracerStepConsts:
         self.aidif = float(aidif)
         self.ydiff_fluxform = bool(ydiff_fluxform)
         self.has_iso = bool(has_iso)
+        self.cyclic = bool(cyclic)
         self.kfac = torch.stack([torch.zeros_like(g.dzt2r), g.dzt2r,
                                  g.dztr, g.dzwr[1:], g.dztur, g.dztlr])
 
@@ -126,7 +128,7 @@ def fct_tracer_step_ref(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf,
     aidif = consts.aidif
 
     fe, fn, fb = fct_flux(t_tau, tm1, vet, vnt, vbt, tmask, twodt,
-                          cstdxt2r, cstdyt2r, dzt2r)
+                          cstdxt2r, cstdyt2r, dzt2r, consts.cyclic)
     tend = -((fe - W(fe)) * cstdxt2r + (fn - S(fn)) * cstdyt2r
              + (UP(fb) - fb) * dzt2r)
 
@@ -160,12 +162,13 @@ def fct_tracer_step_ref(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf,
     if aidif > 0.0:
         t_new = invtri_columns(t_new, stf, btf, diff_cbt, kf[0], kmt, tmask,
                                kf[2], kf[4], kf[5], aidif)
-    return setbcx(t_new, True)
+    return setbcx(t_new, consts.cyclic)
 
 
 def fct_tracer_step(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf, btf,
                     source, twodt_k, tmask, kmt, isow=None):
-    """One tracer timestep for all tracers, cyclic in x.
+    """One tracer timestep for all tracers, with the zonal boundary
+    condition of ``consts.cyclic``.
 
     t_tau, tm1, source : (nt, km, jmt, imt); source may be None
     vet/vnt/vbt        : (km, jmt, imt) total advective velocities
@@ -206,7 +209,7 @@ def fct_tracer_step(consts, t_tau, tm1, vet, vnt, vbt, diff_cbt, stf, btf,
            ptr(source), ptr(isow), ptr(twodt_k), ptr(consts.kfac),
            ptr(consts.jif), ptr(kmt),
            ptr(out), nt, km, jmt, imt, consts.aidif,
-           int(consts.ydiff_fluxform))
+           int(consts.ydiff_fluxform), int(consts.cyclic))
     fct_tracer_step.launches += 1
     return out
 
