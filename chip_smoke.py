@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship ocean steps, its restoring run and
-its coupled earth segment on one NVIDIA card.
+"""Drive the PyTorch port's flagship ocean steps, its restoring run, its
+coupled earth segment and its rank-decomposed ocean step on one NVIDIA
+card.
 
     python3 chip_smoke.py                  # the whole check, below
     python3 chip_smoke.py --times          # kernel times only, one JSON line
@@ -183,11 +184,15 @@ Phases (each failure ends the run with a non-zero exit code):
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
-   at nt=2 and nt=41, one replay of each step type, in which each of
-   the three kernels must run exactly once, with the device kernels per
-   replayed step (profiled again, up to REPLAY_SESSIONS times, when the
-   profiler lost a kernel's record; see check_replay_counts); then the
-   device activities of one replayed and one eager earth segment.
+   one replay of each step type at nt=2 and of the leapfrog step at
+   nt=41 (its mixing step's graph holds one launch of each kernel by the
+   capture's counters, phase 5), in which each of the three kernels must
+   run exactly once, with the device kernels per replayed step
+   (profiled again, up to REPLAY_SESSIONS times, when the profiler lost
+   a kernel's record; see check_replay_counts); then the device
+   activities of one replayed earth segment (the eager segment's and
+   the nt=41 mixing step's sessions, ~36 s of recorded activities, went
+   to pay for phase 13).
 12. The ocean options, after the profiler (the first profiler session
    taken after this phase recorded no device activity).  Three flagship
    models (``entry._flagship`` with
@@ -212,6 +217,22 @@ Phases (each failure ends the run with a non-zero exit code):
    float32 on the card against float64 on the CPU within TOL_SMALL, and
    for SMALL_KERNEL_CHECKS the kernels held against their plain
    versions as above.
+13. The rank-decomposed flagship (``uvic_tpu_torch.parallel``): eight
+   ranks of a SHARDED_MESH mesh spawned on the one card (gloo; the
+   halos and the gathers staged through the host, the transport
+   printed), each building the full-width flagship and stepping its
+   block through ``ShardedOceanStep`` (SHARDED_SCHEDULE: a forward and
+   three leapfrog steps from phase 2's perturbed state).  The gathered
+   state is held against the unsharded step on the same tracer path
+   (the generic step) within TOL_SHARDED of each field's scale (the gap
+   from the default fused step printed beside it); every rank's psi0,
+   psi1, ptd and ptdb bitwise equal; every rank's launch counters: B3
+   and B2 once a step, B1 never (the sharded core takes the generic
+   tracer step, as the reference's does); B3 on rank 0's block and B2
+   on rank 0's replicated solve (its last step's inputs) held against
+   their plain versions at phase 2's tolerances; rank 0's step and
+   message times, labelled as eight ranks sharing one card.  A failing
+   or hung rank (SHARDED_TIMEOUT_S) fails the phase.
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
@@ -227,9 +248,11 @@ inputs, `earth_bgc` the phase 8 readings on the earth carbon cycle's
 inputs, `earth_accel` the phase 9 readings on the accelerated inputs,
 `earth_brine` the apply's on the brine path, `restoring` the phase 10
 readings on the restoring step's inputs, `options` the phase 12
-readings by option model, the CG's by operator, and `launches_by_path`
+readings by option model, the CG's by operator, `sharded` the phase 13
+readings on rank 0's inputs (B3, B2), and `launches_by_path`
 the option models' launches a step, eager and per replayed step, and of
-an Euler-backward mixing step) and the result line {"ok": true,
+an Euler-backward mixing step, and `sharded` each rank's launches over
+phase 13's steps) and the result line {"ok": true,
 "device": {...}}.  Each phase's end prints its seconds (``phase N: ...
 s``), and the line before the card's name all of them.
 
@@ -504,6 +527,20 @@ SMALL_GRID = {"walls": dict(cyclic=False)}
 # small-form options whose kernels are also held against their plain
 # versions on the card (the rigid lid's B2 runs at full width nowhere)
 SMALL_KERNEL_CHECKS = ("surface_pressure",)
+# The rank-decomposed flagship (phase 13): eight gloo ranks of a (2, 4)
+# mesh share the card, their halos staged through the host; a forward and
+# three leapfrog steps from the perturbed flagship state, the gathered
+# state held against the unsharded step on the same tracer path (the
+# generic step) within TOL_SHARDED of each field's largest magnitude.
+SHARDED_MESH = (2, 4)
+SHARDED_SCHEDULE = (False, True, True, True)
+SHARDED_TIMEOUT_S = 240
+# The gap measured on the card was 0 in every field (bitwise: the same
+# arithmetic on each cell, island sums in a fixed order), so the limit
+# is 0; before the island sums' repair the ranks' preconditioners parted
+# by round-off and the gaps read 1e-7 (t, u) to 6e-6 (ptd).
+TOL_SHARDED = dict(t=0.0, tm1=0.0, u=0.0, um1=0.0, psi0=0.0, psi1=0.0,
+                   ptd=0.0, ptdb=0.0)
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -1334,7 +1371,8 @@ def replay_counts(m, state, forcing):
     return counts, total
 
 
-def check_replay_counts(m, state, forcing, label):
+def check_replay_counts(m, state, forcing, label,
+                        kinds=("leapfrog", "mixing")):
     """One launch of each kernel on the device in a replay of each step
     type; returns the device kernels per step by step type.
 
@@ -1344,11 +1382,13 @@ def check_replay_counts(m, state, forcing, label):
     the card, the CG's among them), so a step type whose session does
     not show each kernel exactly once is profiled again, up to
     REPLAY_SESSIONS times, and each kernel's largest count over the
-    sessions must be 1."""
+    sessions must be 1.  ``kinds``: the step types profiled."""
     import dataclasses
     nmix = m.cfg.ocean.nmix
     per_step = {}
     for kind, itt in (("leapfrog", 1), ("mixing", nmix)):
+        if kind not in kinds:
+            continue
         most, totals = {k: 0 for k in KERNEL_NAMES}, []
         for _ in range(REPLAY_SESSIONS):
             counts, total = replay_counts(
@@ -2213,15 +2253,14 @@ def golden_gaps_of(path):
 
 
 def earth_launches(m, state):
-    """Device activities of one replayed and one eager earth segment
-    (torch.profiler, CUDA activity only; the replay first, since a
-    session after many eager launches can record nothing)."""
+    """Device activities of one replayed earth segment (torch.profiler,
+    CUDA activity only)."""
     import warnings
     import torch
     from torch.profiler import ProfilerActivity, profile
     counts = {}
     relyr0 = m.relyr
-    for label, eager in (("replayed", False), ("eager", True)):
+    for label, eager in (("replayed", False),):
         m.relyr = relyr0
         torch.cuda.synchronize()
         with warnings.catch_warnings():
@@ -3238,6 +3277,136 @@ def options_phase():
 
 
 
+def sharded_rank(mesh, job):
+    """Phase 13's rank: ``run_sharded`` on the card; rank 0 also returns
+    the arguments of its last step's convection (B3's inputs on its
+    block) and barotropic solve (B2's, replicated)."""
+    import torch
+    import uvic_tpu_torch.parallel.shard_step as ss_mod
+    seen = {}
+    convect, tropic = ss_mod.convct_full, ss_mod.tropic_step
+
+    def rec_convect(*a):
+        seen["convect"] = a
+        return convect(*a)
+
+    def rec_tropic(*a, **k):
+        a = list(a)
+        solver = a[13]
+
+        def rec_solver(*sa):
+            seen["cg"] = sa
+            return solver(*sa)
+        a[13] = rec_solver
+        return tropic(*a, **k)
+
+    if mesh.rank == 0:
+        ss_mod.convct_full, ss_mod.tropic_step = rec_convect, rec_tropic
+    try:
+        out = ss_mod.run_sharded(mesh, **job)
+    finally:
+        ss_mod.convct_full, ss_mod.tropic_step = convect, tropic
+    out["inputs"] = {k: [x.cpu().numpy() if torch.is_tensor(x) else x
+                         for x in v] for k, v in seen.items()}
+    return out
+
+
+def sharded_phase(m, state, forcing):
+    """Phase 13: the flagship on SHARDED_MESH's eight ranks of one card,
+    against the unsharded step; B3 and B2 on rank 0's inputs against
+    their plain versions.  Returns the kernel checks and the ranks'
+    launch counts."""
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.convert import ocean_state_to_numpy
+    from uvic_tpu_torch.parallel.launch import spawn
+    start = perturbed(m, state)
+    fields = ("t", "tm1", "u", "um1", "psi0", "psi1", "ptd", "ptdb")
+
+    def unsharded(fused):
+        m.fused_tracer, saved = fused, m.fused_tracer
+        try:
+            s = start
+            for lf in SHARDED_SCHEDULE:
+                s = m._step(s, forcing, leapfrog=lf)
+        finally:
+            m.fused_tracer = saved
+        return ocean_state_to_numpy(s)
+    ref, ref_fused = unsharded(False), unsharded(True)
+    job = dict(cfg=m.cfg, state=ocean_state_to_numpy(start),
+               forcing={k: getattr(forcing, k).cpu().numpy()
+                        for k in ("smf", "stf", "swr", "aice", "hice",
+                                  "hsno", "btf")},
+               schedule=list(SHARDED_SCHEDULE))
+    job["forcing"]["relyr"] = float(forcing.relyr)
+    n = SHARDED_MESH[0] * SHARDED_MESH[1]
+    t0 = time.perf_counter()
+    res = spawn(sharded_rank, SHARDED_MESH, "gloo", "cuda",
+                SHARDED_TIMEOUT_S, job)
+    spawn_s = time.perf_counter() - t0
+    r0 = res[0]
+    got = r0["state"]
+    say(f"  {n} ranks of a {SHARDED_MESH} mesh on one card in {spawn_s:.1f}"
+        f" s (start, model builds, {len(SHARDED_SCHEDULE)} steps, gather); "
+        f"transport: {r0['transport']}; CG iterations by step "
+        f"{r0['cg_iters']}")
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    gaps = {k: gap(got[k], ref[k]) for k in fields}
+    say(f"  gathered state against the unsharded step (generic tracer "
+        f"step), largest gap over each field's scale: {json.dumps(gaps)}")
+    say("  ... against the unsharded step with the fused tracer step (B1): "
+        + json.dumps({k: gap(got[k], ref_fused[k]) for k in fields}))
+    for k, g in gaps.items():
+        if not g <= TOL_SHARDED[k]:
+            raise AssertionError(f"sharded {k}: gap {g} > {TOL_SHARDED[k]}")
+    if int(got["itt"]) != int(ref["itt"]) \
+            or int(got["nconv"]) != int(ref["nconv"]):
+        raise AssertionError("sharded itt/nconv differ from the unsharded")
+    for rank, r in enumerate(res):
+        for k, v in r["barotropic"].items():
+            if not np.array_equal(v, r0["barotropic"][k]):
+                raise AssertionError(f"rank {rank}'s {k} differs from rank "
+                                     "0's")
+        want = {"fct_tracer_step": 0,
+                "apply_region_means": len(SHARDED_SCHEDULE),
+                "congrad": len(SHARDED_SCHEDULE)}
+        if r["launches"] != want:
+            raise AssertionError(f"rank {rank} launched {r['launches']}, "
+                                 f"the path {want}")
+    say(f"  psi0, psi1, ptd, ptdb bitwise equal on all {n} ranks; launches "
+        f"on every rank {json.dumps(r0['launches'])}")
+    step_ms = statistics.median(
+        1e3 * t for t, lf in zip(r0["step_s"], SHARDED_SCHEDULE) if lf)
+    ex_ms = statistics.median(
+        1e3 * t for t, lf in zip(r0["exchange_s"], SHARDED_SCHEDULE) if lf)
+    timing = dict(step_ms=step_ms, exchange_ms=ex_ms,
+                  messages=r0["messages"] / len(SHARDED_SCHEDULE))
+    say(f"  {n} ranks sharing one H100 (a check of the machinery, not a "
+        f"speed-up): rank 0's leapfrog step {step_ms:.1f} ms, {ex_ms:.1f} "
+        f"ms of it in messages and host staging (medians; by step "
+        f"{[round(1e3 * t, 1) for t in r0['step_s']]} and "
+        f"{[round(1e3 * t, 1) for t in r0['exchange_s']]} ms, the first "
+        f"waiting for the slowest rank's start; {timing['messages']:.0f} "
+        f"messages a step); {card_line()}")
+
+    def cuda(v):
+        return tuple(torch.as_tensor(x, device="cuda")
+                     if isinstance(x, np.ndarray) else x for x in v)
+    say(" apply_region_means on rank 0's block (its last step's inputs)")
+    k_convect = check_convect({"convect": cuda(r0["inputs"]["convect"])})
+    say(" congrad on rank 0's replicated solve (its last step's inputs)")
+    k_cg = check_cg_solve(m.cg_solver, cuda(r0["inputs"]["cg"]),
+                          "sharded rank 0")
+    for k in (k_convect, k_cg):
+        k.pop("per_call_fn", None)
+        say_kernel("sharded rank 0", k)
+    return dict(convect=k_convect, cg=k_cg, gaps=gaps, timing=timing,
+                spawn_s=spawn_s,
+                launches=[r["launches"] for r in res])
+
+
 PHASE_CLOCK = []     # (number, start) of the phase that runs
 PHASE_S = {}         # seconds of each finished phase, by number
 
@@ -3478,7 +3647,7 @@ def main(argv):
                                  f"{k['launches_per_call']} device kernels "
                                  "per call")
     per_step2 = check_replay_counts(m, state, forcing, "nt=2")
-    per_step41 = check_replay_counts(m41, s41, f41, "nt=41")
+    per_step41 = check_replay_counts(m41, s41, f41, "nt=41", ("leapfrog",))
     say(f"  kernel launches per MOBI step: {json.dumps(per_step41)}")
     earth_dev = earth_launches(earth["model"], earth["start"])
     say(f"  device activities of one earth segment: "
@@ -3487,6 +3656,10 @@ def main(argv):
     phase("phase 12: the ocean options at full width (three flagship "
           "models with options on top) and every option in the small form")
     optres = options_phase()
+
+    phase(f"phase 13: the rank-decomposed flagship, {SHARDED_MESH} mesh of "
+          "ranks sharing the card, against the unsharded step")
+    shard = sharded_phase(m, state, forcing)
 
     by_path = {k: {"nt2_eager": launches[k],
                    "nt2_run_scan_per_step": captured2[k],
@@ -3514,7 +3687,8 @@ def main(argv):
                    "restoring_year_by_replays": rest["year_counts"][k],
                    **{f"options_{o}_{kind}": c[k]
                       for o, r in optres.items() if "counts" in r
-                      for kind, c in r["counts"].items()}}
+                      for kind, c in r["counts"].items()},
+                   "sharded": [c[k] for c in shard["launches"]]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -3588,6 +3762,12 @@ def main(argv):
                             "max_abs_err", "ms", "device_ms", "plain_ms",
                             "bound_ms", "bound_by", "library_ms", "iters",
                             "iters_zero") if f in r[key]}
+        ks = {"apply_region_means": shard["convect"],
+              "congrad": shard["cg"]}.get(k["name"])
+        if ks is not None:
+            entry["sharded"] = {key: ks[key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms") if key in ks}
         if k["name"] == "apply_region_means":
             kbr = opts["brine_convect"]
             entry["earth_brine"] = {key: kbr[key] for key in (
@@ -3598,15 +3778,17 @@ def main(argv):
         f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "
         f"{eager41_ms:.1f} ms, replayed {scan41_ms:.1f} ms "
         f"({per_step41['leapfrog']} kernels); earth segment eager "
-        f"{earth['eager_ms']:.1f} ms ({earth_dev['eager']} device "
-        f"activities), replayed {earth['replay_ms']:.1f} ms "
+        f"{earth['eager_ms']:.1f} ms, replayed {earth['replay_ms']:.1f} ms "
         f"({earth_dev['replayed']}), inside Run {earth['run_ms']:.1f} ms "
         f"({EARTH_YEAR} segments against the golden tsi); earth bgc "
         f"segment eager {bgc['eager_ms']:.1f} ms, replayed "
         f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
         f"({EARTH_BGC_MONTH} segments against {EARTH_BGC_GOLDEN}); "
         f"restoring segment replayed {rest['seg_ms']:.1f} ms "
-        f"({RESTORING_SEGMENTS} segments against {RESTORING_GOLDEN})")
+        f"({RESTORING_SEGMENTS} segments against {RESTORING_GOLDEN}); "
+        f"sharded flagship step {shard['timing']['step_ms']:.1f} ms with "
+        f"{shard['timing']['exchange_ms']:.1f} ms of messages "
+        f"({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one card)")
     phase(None)
     say("phase seconds: " + json.dumps(
         {n: round(t, 1) for n, t in PHASE_S.items()}))

@@ -272,7 +272,8 @@ class TimeConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device-mesh configuration (one card in the port)."""
+    """Mesh configuration; ``checks.validate`` holds ``mesh_shape`` to
+    the halo law of ``parallel.shard_step.ShardedOceanStep``."""
     mesh_shape: Tuple[int, int] = (1, 1)       # devices along (y, x)
     axis_names: Tuple[str, str] = ("y", "x")
     halo: int = 2

@@ -34,11 +34,12 @@ from .models.ocean.model import make_forcing, make_ocean
 
 
 def _flagship(small=False, device=None, dtype="float32", mobi=False,
-              ocean=None, grid=None):
+              ocean=None, grid=None, small_shape=(34, 40)):
     """(model, primed state, forcing) of the flagship configuration,
-    with the options ``ocean`` and ``grid`` on top."""
+    with the options ``ocean`` and ``grid`` on top; ``small_shape`` is
+    the small form's (jmt, imt)."""
     if small:
-        cfg = small_config(imt=40, jmt=34, km=8)
+        cfg = small_config(imt=small_shape[1], jmt=small_shape[0], km=8)
         cfg = cfg.replace(dtype=dtype, ocean=dataclasses.replace(
             cfg.ocean, isopycmix=False, gent_mcwilliams=False))
     else:
@@ -96,3 +97,49 @@ def _earth(restart=None, device=None, dtype="float32", cfg=None):
             if relyr is not None:
                 model.relyr = relyr
     return model, state
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """The ocean part of ``__graft_entry__.dryrun_multichip``: the small
+    flagship on a ``(2, n/2)`` mesh (``(1, n)`` for odd or small n) of
+    ``n_devices`` ranks (gloo; ``device`` each rank's, ``cuda`` unless
+    asked otherwise), one rank-decomposed leapfrog step, no NaN.  The
+    halo is derived from the configuration (``ShardedOceanStep.
+    required_halo``) and the grid widened where a block could not hold
+    it with the ghost columns (44 columns on a (2, 4) mesh; the 34 rows
+hold it on two bands).  Raises if
+    a rank fails."""
+    from .parallel.launch import spawn
+    if n_devices % 2 == 0 and n_devices > 2:
+        shape = (2, n_devices // 2)
+    else:
+        shape = (1, n_devices)
+    spawn(_dryrun_rank, shape, "gloo", device, 600.0)
+
+
+def _dryrun_rank(mesh):
+    from .parallel.mesh import gather_pytree, shard_pytree
+    from .parallel.shard_step import ShardedOceanStep
+    m, state, forcing = _flagship(small=True, device=mesh.device)
+    w = ShardedOceanStep.required_halo(m.cfg.ocean)
+    imt = 40
+    while not _holds_halo(imt, mesh.shape[1], w):
+        imt += 1
+    if imt != 40:
+        m, state, forcing = _flagship(small=True, device=mesh.device,
+                                      small_shape=(34, imt))
+    ss = ShardedOceanStep(m, mesh)
+    g = m.params.grid
+    s = ss.step(shard_pytree(state, mesh, g.jmt, g.imt),
+                shard_pytree(forcing, mesh, g.jmt, g.imt), leapfrog=True)
+    out = gather_pytree(s, mesh, g.jmt, g.imt)
+    for name in ("t", "u", "psi0"):
+        if bool(torch.isnan(getattr(out, name)).any()):
+            raise AssertionError(f"sharded step NaN in {name}")
+
+
+def _holds_halo(imt, nx, w):
+    """Whether blocks of ``nx`` ranks on ``imt`` columns hold a halo of
+    ``w`` with the window's ghost and image columns."""
+    imt_p = -(-imt // nx) * nx
+    return nx == 1 or imt_p // nx >= w + 2 + imt_p - imt

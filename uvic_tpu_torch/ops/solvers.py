@@ -29,11 +29,26 @@ class IslandIndex:
 
 
 def island_sum(x, isl: IslandIndex):
-    """Per-island sum of x over perimeter cells -> (nisle,) vector."""
+    """Per-island sum of x over perimeter cells -> (nisle,) vector, added
+    in the same order on every call: in cell order on the CPU (the
+    reference's scatter-add), by one reduction per island on a card,
+    where ``index_add_`` adds with atomics in an order that changes from
+    call to call and from process to process (ranks that solve the same
+    system would then part by round-off)."""
+    if x.device.type != "cpu":
+        return island_sum_by_reduction(x, isl)
     pid = torch.clamp(isl.perim_id, 0, max(isl.nisle - 1, 0))
     contrib = torch.where(isl.perim_id >= 0, x, torch.zeros_like(x))
     out = torch.zeros(max(isl.nisle, 1), dtype=x.dtype, device=x.device)
     return out.index_add_(0, pid.reshape(-1), contrib.reshape(-1))
+
+
+def island_sum_by_reduction(x, isl: IslandIndex):
+    """``island_sum`` as one masked reduction per island: its order is
+    fixed by the shape alone, on any device."""
+    ids = torch.arange(max(isl.nisle, 1), device=x.device)
+    own = isl.perim_id[None] == ids[:, None, None]
+    return torch.where(own, x[None], torch.zeros_like(x)).sum((-2, -1))
 
 
 def _dist(x, isl, sums):
