@@ -222,7 +222,8 @@ Phases (each failure ends the run with a non-zero exit code):
    halos and the gathers staged through the host, the transport
    printed), each building the full-width flagship and stepping its
    block through ``ShardedOceanStep`` (SHARDED_SCHEDULE: a forward and
-   three leapfrog steps from phase 2's perturbed state).  The gathered
+   a leapfrog step from phase 2's perturbed state; three leapfrog steps
+   until the earth part came to pay for).  The gathered
    state is held against the unsharded step on the same tracer path
    (the generic step) within TOL_SHARDED of each field's scale (the gap
    from the default fused step printed beside it); every rank's psi0,
@@ -231,8 +232,21 @@ Phases (each failure ends the run with a non-zero exit code):
    tracer step, as the reference's does); B3 on rank 0's block and B2
    on rank 0's replicated solve (its last step's inputs) held against
    their plain versions at phase 2's tolerances; rank 0's step and
-   message times, labelled as eight ranks sharing one card.  A failing
-   or hung rank (SHARDED_TIMEOUT_S) fails the phase.
+   message times, labelled as eight ranks sharing one card.  Then, in
+   the same ranks, the rank-decomposed coupled segment
+   (``parallel.shard_segment.ShardedCoupledModel``): each rank builds
+   the full-width earth model from EARTH_RESTART (earth_config, float32,
+   six islands) and runs one segment (8 atmosphere and 4 ocean steps),
+   the ocean on its block, the atmosphere, ice and land replicated.
+   The gathered state and time means are held against the unsharded
+   eager segment on the generic tracer step within TOL_SHARDED_EARTH
+   (the gap from the default segment with B1 printed beside it); every
+   rank's whole components bitwise equal (one digest each); every
+   rank's counters, set to 0 before the segment: B3 and B2 once an
+   ocean step, B1 never; B3 on rank 0's block and B2 on rank 0's
+   replicated solve (its last ocean step's inputs) against their plain
+   versions; rank 0's segment and message times and peak allocated
+   memory.  A failing or hung rank (SHARDED_TIMEOUT_S) fails the phase.
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
@@ -248,11 +262,13 @@ inputs, `earth_bgc` the phase 8 readings on the earth carbon cycle's
 inputs, `earth_accel` the phase 9 readings on the accelerated inputs,
 `earth_brine` the apply's on the brine path, `restoring` the phase 10
 readings on the restoring step's inputs, `options` the phase 12
-readings by option model, the CG's by operator, `sharded` the phase 13
-readings on rank 0's inputs (B3, B2), and `launches_by_path`
+readings by option model, the CG's by operator, `sharded` and
+`sharded_earth` the phase 13 readings on rank 0's flagship and earth
+inputs (B3, B2), and `launches_by_path`
 the option models' launches a step, eager and per replayed step, and of
-an Euler-backward mixing step, and `sharded` each rank's launches over
-phase 13's steps) and the result line {"ok": true,
+an Euler-backward mixing step, `sharded` each rank's launches over
+phase 13's flagship steps and `sharded_earth_per_segment` over its
+earth segment) and the result line {"ok": true,
 "device": {...}}.  Each phase's end prints its seconds (``phase N: ...
 s``), and the line before the card's name all of them.
 
@@ -529,11 +545,11 @@ SMALL_GRID = {"walls": dict(cyclic=False)}
 SMALL_KERNEL_CHECKS = ("surface_pressure",)
 # The rank-decomposed flagship (phase 13): eight gloo ranks of a (2, 4)
 # mesh share the card, their halos staged through the host; a forward and
-# three leapfrog steps from the perturbed flagship state, the gathered
+# a leapfrog step from the perturbed flagship state, the gathered
 # state held against the unsharded step on the same tracer path (the
 # generic step) within TOL_SHARDED of each field's largest magnitude.
 SHARDED_MESH = (2, 4)
-SHARDED_SCHEDULE = (False, True, True, True)
+SHARDED_SCHEDULE = (False, True)
 SHARDED_TIMEOUT_S = 240
 # The gap measured on the card was 0 in every field (bitwise: the same
 # arithmetic on each cell, island sums in a fixed order), so the limit
@@ -541,6 +557,13 @@ SHARDED_TIMEOUT_S = 240
 # by round-off and the gaps read 1e-7 (t, u) to 6e-6 (ptd).
 TOL_SHARDED = dict(t=0.0, tm1=0.0, u=0.0, um1=0.0, psi0=0.0, psi1=0.0,
                    ptd=0.0, ptdb=0.0)
+# The rank-decomposed earth segment (phase 13's second part): in the same
+# ranks, one ShardedCoupledModel segment of the earth model from
+# EARTH_RESTART, the gathered state and time means held against the
+# unsharded eager segment on the same tracer path (the generic step)
+# within TOL_SHARDED_EARTH of each field's largest magnitude: the same
+# arithmetic on each cell, the 2-D components replicated.
+TOL_SHARDED_EARTH = 0.0
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -3300,21 +3323,173 @@ def sharded_rank(mesh, job):
         a[13] = rec_solver
         return tropic(*a, **k)
 
+    def inputs():
+        out = {k: [x.cpu().numpy() if torch.is_tensor(x) else x
+                   for x in v] for k, v in seen.items()}
+        seen.clear()
+        return out
+
     if mesh.rank == 0:
         ss_mod.convct_full, ss_mod.tropic_step = rec_convect, rec_tropic
     try:
         out = ss_mod.run_sharded(mesh, **job)
+        out["inputs"] = inputs()
+        out["earth"] = sharded_earth_rank(mesh)
+        out["earth"]["inputs"] = inputs()
     finally:
         ss_mod.convct_full, ss_mod.tropic_step = convect, tropic
-    out["inputs"] = {k: [x.cpu().numpy() if torch.is_tensor(x) else x
-                         for x in v] for k, v in seen.items()}
     return out
+
+
+def sharded_earth_rank(mesh):
+    """Phase 13's earth part on a rank: the earth model from
+    EARTH_RESTART, one ``ShardedCoupledModel`` segment from the rank's
+    block of its state, the launch counters set to 0 just before it and
+    read just after; on rank 0 the gathered state and time means."""
+    import torch
+    from uvic_tpu_torch.coupler.driver import pack_state
+    from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
+    from uvic_tpu_torch.entry import _earth
+    from uvic_tpu_torch.parallel.shard_segment import (ShardedCoupledModel,
+                                                       replicated_digest)
+    t0 = time.perf_counter()
+    m, start = _earth(EARTH_RESTART)
+    sm = ShardedCoupledModel(m, mesh)
+    block = sm.shard(start)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    ex0, msg0 = mesh.exchange_s, mesh.messages
+    t1 = time.perf_counter()
+    out = sm.run_segment(block)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t1
+    launches = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+    res = dict(build_s=build_s, seg_s=seg_s,
+               exchange_s=mesh.exchange_s - ex0,
+               messages=mesh.messages - msg0, launches=launches,
+               digest=replicated_digest(out),
+               cg_iters=sm.seg_cg_iters.cpu().numpy().tolist(),
+               max_memory=torch.cuda.max_memory_allocated(),
+               block=tuple(out.ocean.t.shape))
+    whole = sm.gather(out, root=0)
+    tavg = sm.gather_tavg(root=0)
+    if whole is not None:
+        res["state"] = {k: v.cpu().numpy()
+                        for k, v in pack_state(whole).items()}
+        res["tavg"] = {k: v.cpu().numpy() for k, v in tavg.items()}
+        res["counters"] = (whole.ocean.itt, whole.atm.nats)
+    return res
+
+
+def sharded_earth_check(res):
+    """Phase 13's earth part in the parent: the gathered state and time
+    means of the ranks' segment against the unsharded eager segment on
+    the generic tracer step (within TOL_SHARDED_EARTH of each field's
+    scale; the gap from the default segment with B1 printed beside it),
+    every rank's whole components bitwise alike (their digests), every
+    rank's launches (B3 and B2 once an ocean step, B1 never), and B3 on
+    rank 0's block and B2 on rank 0's replicated solve against their
+    plain versions."""
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.coupler.driver import pack_state
+    from uvic_tpu_torch.entry import _earth
+    r0 = res[0]["earth"]
+    n = len(res)
+    em, start = _earth(EARTH_RESTART)
+    say(f"  earth: {n} ranks built the earth model from {EARTH_RESTART} "
+        f"(rank 0 {r0['build_s']:.1f} s) and ran one segment of "
+        f"{em.ntspas} atmosphere and {em.ntspos} ocean steps on blocks "
+        f"{r0['block']}; CG iterations by step {r0['cg_iters']}")
+
+    def unsharded(fused):
+        em.ocean.fused_tracer, saved = fused, em.ocean.fused_tracer
+        try:
+            out = em.run_segment(start)
+        finally:
+            em.ocean.fused_tracer = saved
+        return ({k: v.cpu().numpy() for k, v in pack_state(out).items()},
+                {k: v.cpu().numpy() for k, v in em.last_tavg.items()},
+                (out.ocean.itt, out.atm.nats))
+
+    def gaps(got, ref):
+        if set(got) != set(ref):
+            raise AssertionError("sharded earth: fields differ "
+                                 f"{sorted(set(got) ^ set(ref))}")
+        return {k: float(np.abs(got[k].astype(np.float64) - ref[k]).max()
+                         / max(float(np.abs(ref[k]).max()), 1e-30))
+                for k in ref}
+    ref_state, ref_tavg, counters = unsharded(False)
+    b1_state, b1_tavg, _ = unsharded(True)
+    g_state = gaps(r0["state"], ref_state)
+    g_tavg = gaps(r0["tavg"], ref_tavg)
+    worst = max(list(g_state.values()) + list(g_tavg.values()))
+    say(f"  earth: gathered state and time means against the unsharded "
+        f"eager segment (generic tracer step), largest gap over a field's "
+        f"scale {worst!r} (limit {TOL_SHARDED_EARTH}); nonzero: "
+        + json.dumps({k: v for k, v in {**g_state, **{
+            "tavg/" + k: v for k, v in g_tavg.items()}}.items() if v > 0}))
+    say("  ... against the default unsharded segment (B1): largest gap "
+        "by field " + json.dumps({k: v for k, v in sorted(
+            {**gaps(r0["state"], b1_state), **{
+                "tavg/" + k: v for k, v in gaps(r0["tavg"],
+                                                b1_tavg).items()}}.items(),
+            key=lambda kv: -kv[1])[:8]}))
+    if not worst <= TOL_SHARDED_EARTH:
+        raise AssertionError(f"sharded earth segment: gap {worst} > "
+                             f"{TOL_SHARDED_EARTH}")
+    if tuple(r0["counters"]) != tuple(counters):
+        raise AssertionError(f"sharded earth counters {r0['counters']} "
+                             f"against {counters}")
+    digests = {r["earth"]["digest"] for r in res}
+    if len(digests) != 1:
+        raise AssertionError(f"sharded earth: the ranks' whole components "
+                             f"differ ({len(digests)} digests)")
+    want = {"fct_tracer_step": 0, "apply_region_means": em.ntspos,
+            "congrad": em.ntspos}
+    for rank, r in enumerate(res):
+        if r["earth"]["launches"] != want:
+            raise AssertionError(f"sharded earth: rank {rank} launched "
+                                 f"{r['earth']['launches']}, the path "
+                                 f"{want}")
+    say(f"  earth: atmosphere, ice, land and barotropic fields bitwise "
+        f"equal on all {n} ranks (one digest); launches on every rank "
+        f"{json.dumps(want)}")
+    timing = dict(segment_ms=1e3 * r0["seg_s"],
+                  exchange_ms=1e3 * r0["exchange_s"],
+                  messages=r0["messages"],
+                  max_memory_gb=r0["max_memory"] / 2**30)
+    say(f"  earth: {n} ranks sharing one H100 (a check of the machinery, "
+        f"not a speed-up): rank 0's segment {timing['segment_ms']:.1f} ms, "
+        f"{timing['exchange_ms']:.1f} ms of it in messages, host staging "
+        f"and the waits inside them ({r0['messages']} messages); rank 0's "
+        f"peak allocated memory {timing['max_memory_gb']:.2f} GiB; "
+        f"{card_line()}")
+
+    def cuda(v):
+        return tuple(torch.as_tensor(x, device="cuda")
+                     if isinstance(x, np.ndarray) else x for x in v)
+    say(" apply_region_means on rank 0's earth block (its last ocean "
+        "step's inputs)")
+    k_convect = check_convect({"convect": cuda(r0["inputs"]["convect"])})
+    say(" congrad on rank 0's replicated earth solve (its last ocean "
+        "step's inputs)")
+    k_cg = check_cg_solve(em.ocean.cg_solver, cuda(r0["inputs"]["cg"]),
+                          "sharded earth rank 0")
+    for k in (k_convect, k_cg):
+        k.pop("per_call_fn", None)
+        say_kernel("sharded earth rank 0", k)
+    return dict(convect=k_convect, cg=k_cg, timing=timing,
+                gap=worst, launches=[r["earth"]["launches"] for r in res])
 
 
 def sharded_phase(m, state, forcing):
     """Phase 13: the flagship on SHARDED_MESH's eight ranks of one card,
     against the unsharded step; B3 and B2 on rank 0's inputs against
-    their plain versions.  Returns the kernel checks and the ranks'
+    their plain versions; then, in the same ranks, the earth segment
+    (``sharded_earth_check``).  Returns the kernel checks and the ranks'
     launch counts."""
     import numpy as np
     import torch
@@ -3347,7 +3522,8 @@ def sharded_phase(m, state, forcing):
     r0 = res[0]
     got = r0["state"]
     say(f"  {n} ranks of a {SHARDED_MESH} mesh on one card in {spawn_s:.1f}"
-        f" s (start, model builds, {len(SHARDED_SCHEDULE)} steps, gather); "
+        f" s (start, model builds, {len(SHARDED_SCHEDULE)} flagship steps, "
+        f"gather, the earth model builds, its segment, gathers); "
         f"transport: {r0['transport']}; CG iterations by step "
         f"{r0['cg_iters']}")
 
@@ -3402,8 +3578,9 @@ def sharded_phase(m, state, forcing):
     for k in (k_convect, k_cg):
         k.pop("per_call_fn", None)
         say_kernel("sharded rank 0", k)
+    earth = sharded_earth_check(res)
     return dict(convect=k_convect, cg=k_cg, gaps=gaps, timing=timing,
-                spawn_s=spawn_s,
+                spawn_s=spawn_s, earth=earth,
                 launches=[r["launches"] for r in res])
 
 
@@ -3657,8 +3834,9 @@ def main(argv):
           "models with options on top) and every option in the small form")
     optres = options_phase()
 
-    phase(f"phase 13: the rank-decomposed flagship, {SHARDED_MESH} mesh of "
-          "ranks sharing the card, against the unsharded step")
+    phase(f"phase 13: the rank-decomposed flagship and earth segment, "
+          f"{SHARDED_MESH} mesh of ranks sharing the card, against the "
+          "unsharded step and segment")
     shard = sharded_phase(m, state, forcing)
 
     by_path = {k: {"nt2_eager": launches[k],
@@ -3688,7 +3866,9 @@ def main(argv):
                    **{f"options_{o}_{kind}": c[k]
                       for o, r in optres.items() if "counts" in r
                       for kind, c in r["counts"].items()},
-                   "sharded": [c[k] for c in shard["launches"]]}
+                   "sharded": [c[k] for c in shard["launches"]],
+                   "sharded_earth_per_segment":
+                       [c[k] for c in shard["earth"]["launches"]]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -3768,6 +3948,11 @@ def main(argv):
             entry["sharded"] = {key: ks[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms") if key in ks}
+            ke = shard["earth"][{"apply_region_means": "convect",
+                                 "congrad": "cg"}[k["name"]]]
+            entry["sharded_earth"] = {key: ke[key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "iters") if key in ke}
         if k["name"] == "apply_region_means":
             kbr = opts["brine_convect"]
             entry["earth_brine"] = {key: kbr[key] for key in (
@@ -3787,8 +3972,11 @@ def main(argv):
         f"restoring segment replayed {rest['seg_ms']:.1f} ms "
         f"({RESTORING_SEGMENTS} segments against {RESTORING_GOLDEN}); "
         f"sharded flagship step {shard['timing']['step_ms']:.1f} ms with "
-        f"{shard['timing']['exchange_ms']:.1f} ms of messages "
-        f"({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one card)")
+        f"{shard['timing']['exchange_ms']:.1f} ms of messages, sharded "
+        f"earth segment {shard['earth']['timing']['segment_ms']:.1f} ms "
+        f"with {shard['earth']['timing']['exchange_ms']:.1f} ms of "
+        f"messages ({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one "
+        "card)")
     phase(None)
     say("phase seconds: " + json.dumps(
         {n: round(t, 1) for n, t in PHASE_S.items()}))

@@ -51,7 +51,9 @@ def test_every_module_imports_without_jax():
             "uvic_tpu_torch.diag.tmm", "uvic_tpu_torch.debug",
             "uvic_tpu_torch.models.ocean.hmix",
             "uvic_tpu_torch.models.ocean.neptune",
-            "uvic_tpu_torch.models.ocean.surfpress"} <= set(MODULES)
+            "uvic_tpu_torch.models.ocean.surfpress",
+            "uvic_tpu_torch.parallel.shard_step",
+            "uvic_tpu_torch.parallel.shard_segment"} <= set(MODULES)
     out = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *MODULES], cwd=ROOT,
         capture_output=True, text=True, timeout=300)

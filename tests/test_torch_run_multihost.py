@@ -101,6 +101,7 @@ def test_torchrun_environment(tmp_path, runs):
 
 @pytest.mark.parametrize("n", [8, 3])
 def test_dryrun_multichip(n):
-    """The small flagship on a (2, 4) and a (1, 3) mesh, one sharded
-    leapfrog step, no NaN (a rank's failure would raise)."""
+    """On a (2, 4) and a (1, 3) mesh: the small flagship, one sharded
+    leapfrog step, and one rank-decomposed coupled MOBI segment, no NaN
+    (a rank's failure would raise)."""
     dryrun_multichip(n, device="cpu")

@@ -5,13 +5,23 @@ by name: it imports the port and nothing of JAX.
 """
 
 import time
+from types import SimpleNamespace
 
 import torch
 
+from uvic_tpu_torch.convert import ocean_state_from_numpy
+from uvic_tpu_torch.coupler.driver import CoupledModel, pack_state
+from uvic_tpu_torch.diag.conservation import ConservationAudit
+from uvic_tpu_torch.diag.tsi import TsiDiagnostics
+from uvic_tpu_torch.models.ocean.model import make_forcing, make_ocean
 from uvic_tpu_torch.parallel.halo import exchange_pad, pack_exchange
-from uvic_tpu_torch.parallel.mesh import (gather_pytree, make_mesh,
+from uvic_tpu_torch.parallel.mesh import (gather_coupled, gather_pytree,
+                                          make_mesh, shard_coupled,
                                           shard_pytree)
-from uvic_tpu_torch.parallel.shard_step import run_sharded
+from uvic_tpu_torch.parallel.shard_segment import (ShardedCoupledModel,
+                                                   replicated_digest)
+from uvic_tpu_torch.parallel.shard_step import (ShardedOceanStep,
+                                                run_sharded)
 
 
 def block(a, mesh):
@@ -58,6 +68,98 @@ def run_sharded_jobs(mesh, jobs):
     start and one process group for them all): ``jobs`` is a list of
     dicts of its keyword arguments; returns the list of their results."""
     return [run_sharded(mesh, **job) for job in jobs]
+
+
+def call_all(mesh, calls):
+    """Several rank functions on one set of ranks: ``calls`` is a list
+    of (function, keyword arguments); returns the list of results."""
+    return [fn(mesh, **kw) for fn, kw in calls]
+
+
+def scan_mixing_step(mesh, cfg, state, forcing):
+    """One mixing step of ``ShardedOceanStep.step(..., scan=True)`` from
+    the global ``state`` and ``forcing`` (NumPy, ``convert``'s and
+    ``make_forcing``'s names): the gathered tracers on rank 0, None
+    elsewhere."""
+    m = make_ocean(cfg, device="cpu")
+    g = m.params.grid
+    ss = ShardedOceanStep(m, mesh)
+    s = shard_pytree(ocean_state_from_numpy(state, "cpu", m.dtype), mesh,
+                     g.jmt, g.imt)
+    f = shard_pytree(make_forcing(**{k: torch.as_tensor(v)
+                                     for k, v in forcing.items()}),
+                     mesh, g.jmt, g.imt)
+    t = gather_pytree(ss.step(s, f, leapfrog=False, scan=True), mesh,
+                      g.jmt, g.imt, root=0)
+    return None if t is None else t.t.numpy()
+
+
+def coupled_numpy(state, tavg=None, forcing=None):
+    """A ``CoupledState`` (and a segment's time means and forcing) as
+    one dict of NumPy arrays under the workspace's names, with the
+    host counters."""
+    out = {k: v.cpu().numpy() for k, v in pack_state(state).items()}
+    for prefix, d in (("tavg/", tavg), ("forcing/", forcing)):
+        out.update({prefix + k: v.cpu().numpy()
+                    for k, v in (d or {}).items() if v is not None})
+    out.update(itt=state.ocean.itt, nats=state.atm.nats)
+    return out
+
+
+def coupled_segment(mesh, cfg, itt=None, halo=None):
+    """One ``ShardedCoupledModel`` segment of ``cfg`` from the model's
+    ``init_state`` (the ocean's ``itt`` set when given): on rank 0 the
+    gathered state, time means and forcing (``coupled_numpy``), and on
+    every rank its ``replicated_digest``, CG iterations and BiCGSTAB
+    trips."""
+    m = CoupledModel(cfg, device=mesh.device)
+    state = m.init_state()
+    if itt is not None:
+        state.ocean.itt = itt
+    sm = ShardedCoupledModel(m, mesh, halo=halo)
+    out = sm.run_segment(sm.shard(state))
+    whole = sm.gather(out, root=0)
+    tavg = sm.gather_tavg(root=0)
+    return dict(
+        state=None if whole is None else coupled_numpy(
+            whole, tavg, sm.last_forcing),
+        digest=replicated_digest(out), cg_iters=sm.seg_cg_iters.numpy(),
+        trips=sm.seg_trips.numpy())
+
+
+def coupled_roundtrip(mesh, cfg):
+    """A coupled state cut by ``shard_coupled`` and joined by
+    ``gather_coupled`` (on rank 0), with the ocean's block shapes and
+    whether the other components stayed the same objects."""
+    m = CoupledModel(cfg, device="cpu")
+    state = m.init_state()
+    cut = shard_coupled(state, mesh, m.grid.jmt, m.grid.imt)
+    back = gather_coupled(cut, mesh, m.grid.jmt, m.grid.imt, root=0)
+    return dict(
+        whole=None if back is None else coupled_numpy(back),
+        ref=coupled_numpy(state), t_block=tuple(cut.ocean.t.shape),
+        psi_block=tuple(cut.ocean.psi0.shape),
+        same=[getattr(cut, k) is getattr(state, k)
+              for k in ("atm", "ice", "land", "sed", "cpts")])
+
+
+def diag_rows(mesh, cfg, state, atm_ice=None):
+    """The deterministic tsi row and audit inventories of the rank's
+    block of ``state`` (NumPy, ``convert``'s names); ``atm_ice`` (the
+    atmosphere's ``at``, the ice's ``aice`` and ``hice``) whole."""
+    m = make_ocean(cfg, device="cpu")
+    g = m.params.grid
+    s = shard_pytree(ocean_state_from_numpy(state, "cpu", m.dtype), mesh,
+                     g.jmt, g.imt)
+    atm = ice = None
+    if atm_ice is not None:
+        at, aice, hice = (torch.as_tensor(a) for a in atm_ice)
+        atm, ice = SimpleNamespace(at=at), SimpleNamespace(aice=aice,
+                                                           hice=hice)
+    row = TsiDiagnostics(m, deterministic=True).compute(s, atm, ice,
+                                                        mesh=mesh)
+    inv = ConservationAudit(m, deterministic=True).inventories(s, mesh=mesh)
+    return dict(row=row, inventories=inv)
 
 
 def raise_on(mesh, rank):

@@ -85,6 +85,15 @@ GREENLAND = [
     (330.0, 82.5), (338.0, 77.0), (335.0, 70.0), (322.0, 65.0),
 ]
 
+# a Lincoln-Sea land bridge closing the open cyclic channel around the
+# North Pole, kept for reference and NOT active: the reference's
+# enclosed-basin adjustment with it destabilized the polar cells; the
+# channel's free zonal mode is removed at its source instead (the
+# ice-ocean drag law and the central-Arctic wind-stress taper)
+GREENLAND_POLAR = [
+    (300.0, 81.0), (304.0, 90.0), (330.0, 90.0), (331.0, 81.0),
+]
+
 NEW_GUINEA = [
     (131.0, -1.5), (141.0, -3.0), (147.0, -6.0), (150.5, -10.0),
     (143.0, -9.0), (134.0, -4.0),

@@ -117,6 +117,14 @@ class Grid:
     dun: np.ndarray
     dxmetr: np.ndarray      # 1/(dxt[i]+dxt[i+1])
 
+    @property
+    def shape3d(self):
+        return (self.km, self.jmt, self.imt)
+
+    @property
+    def shape2d(self):
+        return (self.jmt, self.imt)
+
     # reciprocals are trivially derived; keep them as cached properties so
     # the numerics reads like the reference (grdvar.h names)
     def __getattr__(self, name):

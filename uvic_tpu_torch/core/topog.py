@@ -150,6 +150,32 @@ def _label_land(kmt: np.ndarray, cyclic: bool):
     return labels, n
 
 
+def set_kmt_region(kmt: np.ndarray, grid: Grid, alat1: float,
+                   slon1: float, elon1: float, alat2: float,
+                   slon2: float, elon2: float, num: int) -> np.ndarray:
+    """Set kmt = ``num`` inside the parallelogram with vertices
+    (alat1, slon1), (alat1, elon1), (alat2, slon2), (alat2, elon2)
+    (source/mom/setkmp.F:1-63), the topography edit that carves
+    idealized basins and straits.  The longitude bounds interpolate
+    linearly between the two latitude rows.  Returns a modified copy."""
+    yt = np.asarray(grid.yt)
+    xt = np.asarray(grid.xt) % 360.0
+    j1 = int(np.argmin(np.abs(yt - alat1)))
+    j2 = int(np.argmin(np.abs(yt - alat2)))
+    js, je = min(j1, j2), max(j1, j2)
+    out = np.array(kmt)
+    denom = max(je - js, 1)
+    for j in range(js, je + 1):
+        w = (j - js) / denom
+        slon = slon1 + w * (slon2 - slon1)
+        elon = elon1 + w * (elon2 - elon1)
+        i1 = int(np.argmin(np.abs(xt - slon % 360.0)))
+        i2 = int(np.argmin(np.abs(xt - elon % 360.0)))
+        is_, ie = min(i1, i2), max(i1, i2)
+        out[j, is_:ie + 1] = num
+    return out
+
+
 def make_topography(grid: Grid, kmt: np.ndarray) -> Topography:
     jmt, imt, km = grid.jmt, grid.imt, grid.km
     kmt = np.asarray(kmt, dtype=np.int32)

@@ -447,10 +447,15 @@ class CoupledModel:
     # ------------------------------------------------------------------
     def gasbc(self, state: CoupledState):
         """Ocean surface state -> atm boundary conditions (gasbc.F)."""
-        sst = state.ocean.t[0, 0]
-        sss = state.ocean.t[1, 0] * 1000.0 + 35.0
-        frzpt = freezing_point(sss)
-        return sst, sss, frzpt
+        return self.surface_bc(state.ocean.t[:, 0])
+
+    @staticmethod
+    def surface_bc(surf):
+        """(sst, sss, frzpt) of the surface tracers ``surf`` (nt, jmt,
+        imt)."""
+        sst = surf[0]
+        sss = surf[1] * 1000.0 + 35.0
+        return sst, sss, freezing_point(sss)
 
     # ------------------------------------------------------------------
     def _atm_ice_step_impl(self, atm: AtmState, ice: IceState, sst, frzpt,
@@ -657,7 +662,8 @@ class CoupledModel:
 
     # ------------------------------------------------------------------
     def gosbc(self, acc, state: CoupledState, swr_mean, sed_flux=None,
-              relyr=None, co2ccn=None, cfcccn=None, dc14ccn=None):
+              relyr=None, co2ccn=None, cfcccn=None, dc14ccn=None,
+              surf=None):
         """Accumulated fluxes -> ocean forcing (gosbc.F:66-145): heat to
         cal/cm^2/s (~ K cm/s), freshwater to a virtual salt flux, wind
         and ice stress to the momentum flux.  With bgc tracers, their gas
@@ -667,7 +673,9 @@ class CoupledModel:
         fluxes [umol/cm^2/s, positive into the ocean] into the bottom
         cells (tracer.F sed block).  ``relyr``, ``co2ccn``, ``cfcccn``
         (four CFC concentrations) and ``dc14ccn`` default to the
-        host-side attributes; the stages pass workspace tensors."""
+        host-side attributes; the stages pass workspace tensors.
+        ``surf``: the surface tracers (nt, jmt, imt), by default
+        ``state.ocean.t[:, 0]``."""
         relyr = self.relyr if relyr is None else relyr
         co2ccn = self.co2ccn if co2ccn is None else co2ccn
         cfcccn = self.cfcccn if cfcccn is None else cfcccn
@@ -693,8 +701,9 @@ class CoupledModel:
         nt = self.ocean.nt
         stf = torch.stack([hflx, sflx])
         if nt > 2:
-            sst, sss, _ = self.gasbc(state)
-            surf = state.ocean.t[:, 0]
+            if surf is None:
+                surf = state.ocean.t[:, 0]
+            sst, sss, _ = self.surface_bc(surf)
             ao = (1.0 - state.ice.aice) * tmsk
             cfc_atm = None
             if cfcccn is not None and "cfc11" in idx:
@@ -731,25 +740,26 @@ class CoupledModel:
                             hice=state.ice.hice, hsno=state.ice.hsno,
                             relyr=relyr, btf=btf, cbf=cbf_salt, cba=cba_w)
 
-    def sediment_step(self, state: CoupledState, co2ccn):
+    def sediment_step(self, state: CoupledState, co2ccn, bottom=None):
         """The sediments' step on the segment's bottom water (sed.F, once
         a segment), before gosbc so that their return flux enters this
-        segment's bottom forcing (tracer.F sed block).  Returns (new
-        sediment state, its dic and alk fluxes into the bottom water
+        segment's bottom forcing (tracer.F sed block).  ``bottom``: the
+        tracers of the bottom cells (nt, jmt, imt), by default
+        ``bottom_water(state.ocean.t, ...)``.  Returns (new sediment
+        state, its dic and alk fluxes into the bottom water
         [umol/cm^2/s])."""
-        sed, sfl = self._sediment_step(state, _chem(co2ccn))
+        if bottom is None:
+            bottom = bottom_water(state.ocean.t, self._sed_kb)
+        sed, sfl = self._sediment_step(state, _chem(co2ccn), bottom)
         dt = self.dtype
         cls, fields = SED_KINDS[sed_kind(sed)]
         return (cls(**{f: getattr(sed, f).to(dt) for f in fields}),
                 {k: sfl[k].to(dt) for k in ("dic", "alk")})
 
-    def _sediment_step(self, state, co2ccn):
+    def _sediment_step(self, state, co2ccn, bottom):
         """sediment_step in CHEM_DTYPE."""
         idx = self.ocean.tracer_index
-        t = state.ocean.t
-        kb = self._sed_kb
-        bt = _chem(torch.gather(t, 1, kb[None, None].expand(
-            t.shape[0], 1, -1, -1))[:, 0])
+        bt = _chem(bottom)
         sss_b = bt[1] * 1000.0 + 35.0
         seg_s = self.cfg.time.segtim_days * 86400.0
         tmsk, depth = self._sed_tmsk, self._sed_depth
@@ -806,10 +816,16 @@ class CoupledModel:
         insolation, the land's conductance and the anomalous winds;
         zeroed accumulators."""
         state = unpack_state(ws, host)
-        sst, _, frzpt = self.gasbc(state)
         u_surf = self.ocean.full_velocity(state.ocean.u, state.ocean.psi0)
-        out = dict(sst=sst, frzpt=frzpt, uocn=u_surf[0, 0],
-                   vocn=u_surf[1, 0],
+        return self.head_fields(ws, state, state.ocean.t[:, 0],
+                                u_surf[0, 0], u_surf[1, 0])
+
+    def head_fields(self, ws, state, surf, uocn, vocn):
+        """stage_head's entries from the surface tracers ``surf`` (nt,
+        jmt, imt) and the surface currents ``uocn``, ``vocn``; the rest
+        of ``state`` is read whole (atmosphere, land)."""
+        sst, _, frzpt = self.surface_bc(surf)
+        out = dict(sst=sst, frzpt=frzpt, uocn=uocn, vocn=vocn,
                    solins=self._solins(ws["relyr"], ws["solar_scale"]))
         if "awind_clim" in ws:
             # the SAT anomaly against the climatology perturbs the
@@ -866,6 +882,15 @@ class CoupledModel:
     def stage_mid(self, ws, host):
         """Segment means of the atmosphere, the land update and gosbc."""
         state = unpack_state(ws, host)
+        t = state.ocean.t
+        bottom = bottom_water(t, self._sed_kb) if self._sed_on else None
+        return self.mid_fields(ws, state, t[:, 0], bottom)
+
+    def mid_fields(self, ws, state, surf, bottom):
+        """stage_mid's entries from the surface tracers ``surf`` and the
+        bottom cells' tracers ``bottom`` (nt, jmt, imt; None without
+        sediments); the ocean's time means start from zeros shaped as
+        ``state.ocean``'s fields."""
         acc = {k: ws["acc/" + k] for k in self.acc_names}
         atm = state.atm
         out = {"tavg/" + k: ws["atav/" + k] / self.ntspas
@@ -905,14 +930,14 @@ class CoupledModel:
         # ---- sediments (sed.F, once a segment) ------------------------
         sfl = None
         if self._sed_on:
-            sed, sfl = self.sediment_step(state, ws["co2ccn"])
+            sed, sfl = self.sediment_step(state, ws["co2ccn"], bottom)
             state.sed = sed
             out.update(pack_sed(sed))
 
         forcing = self.gosbc(acc, state, swr_mean, sed_flux=sfl,
                              relyr=ws["relyr"], co2ccn=ws["co2ccn"],
                              cfcccn=ws.get("cfcccn"),
-                             dc14ccn=ws["dc14ccn"])
+                             dc14ccn=ws["dc14ccn"], surf=surf)
         out.update({"forcing/" + k: getattr(forcing, k)
                     for k in self.forcing_names})
         z3 = torch.zeros_like(state.ocean.t[0])
@@ -933,25 +958,23 @@ class CoupledModel:
         oc = om._step(state.ocean, forcing, leapfrog=leapfrog, scan=True)
         uf = om.full_velocity(oc.u, oc.psi0)
         vet, vnt, vbt, *_ = adv_vel(uf[0], uf[1], om.g, om.cyclic)
-        rho = eos_state_from(om.eos_c, om.eos_to, om.eos_so, oc.t)
-        og = om.g
-        ah = self.cfg.ocean.ah
         tT = oc.t[0]
-        tav = dict(
-            temp=oc.t[0], salt=oc.t[1], u=uf[0], v=uf[1], w=vbt, rho=rho,
-            adv_fe_temp=vet * (tT + E(tT)), adv_fn_temp=vnt * (tT + N(tT)),
-            adv_fb_temp=vbt * (tT + DN(tT)),
-            dif_fe_temp=ah * og.cstdxur[None] * (E(tT) - tT),
-            dif_fn_temp=(ah * (og.csu * og.dyur)[None, :, None]
-                         * (N(tT) - tT)),
-            dif_fb_temp=om.diff_cbt * og.dzwr[1:][:, None, None]
-            * (tT - DN(tT)),
-            psi=oc.psi0)
-        out = {"otav/" + k: ws["otav/" + k] + v for k, v in tav.items()}
+        tav = step_means(tT, E(tT), uf, vet, vnt, vbt, om.g, om.diff_cbt,
+                         self.cfg.ocean.ah)
+        return self.ocean_fields(ws, host, oc, tav, om.last_cg_iters)
+
+    def ocean_fields(self, ws, host, oc, tav, cg_iters):
+        """stage_ocean's entries after the step ``oc``: ``tav`` (the
+        neighbour-reading means of ``step_means``) and the column-local
+        means added to the accumulators, the new ocean state."""
+        om = self.ocean
+        tav = dict(tav, salt=oc.t[1], psi=oc.psi0,
+                   rho=eos_state_from(om.eos_c, om.eos_to, om.eos_so, oc.t))
+        out = {"otav/" + k: ws["otav/" + k] + tav[k] for k in OTAV_NAMES}
         if om.nt > 2:
             out["otav/surf_tracers"] = ws["otav/surf_tracers"] + oc.t[:, 0]
         out.update(pack_ocean(oc))
-        out["cg_iters"] = om.last_cg_iters
+        out["cg_iters"] = cg_iters
         host["itt"] = oc.itt
         return out
 
@@ -960,6 +983,34 @@ class CoupledModel:
         convection extent of the end-of-segment state."""
         state = unpack_state(ws, host)
         ocean = state.ocean
+        om = self.ocean
+        out = self.tail_means(ws)
+        # GM eddy-induced (bolus) velocities for the residual overturning
+        # (mom_tavg.F O_gm_diag rows), from the end-of-segment tracers
+        if self.cfg.ocean.isopycmix and self.cfg.ocean.gent_mcwilliams:
+            from ..models.ocean.isopyc import compute_isopyc
+            iso_d = compute_isopyc(ocean.t, om.tmask, om.kmt, om.eos_c,
+                                   om.eos_to, om.eos_so, om.g,
+                                   self.cfg.ocean, om.cyclic,
+                                   addisop=om.addisop)
+            out.update(bolus_means(iso_d, om.diff_cbt))
+        # convective-adjustment extent (O_save_convection analog)
+        if self.cfg.ocean.convection == "full":
+            out.update(self.convection_means(ocean.t, om.kmt))
+        return out
+
+    def convection_means(self, t, kmt):
+        """The convective-adjustment extent of the tracers ``t``."""
+        from ..ops.convection import convection_extent
+        om = self.ocean
+        cdep, cnreg = convection_extent(t, kmt, om.eos_c, om.eos_to,
+                                        om.eos_so, om.dztxcl, om.g.dzt)
+        return {"tavg/convect_depth": cdep,
+                "tavg/convect_nreg": cnreg.to(cdep.dtype)}
+
+    def tail_means(self, ws):
+        """The segment means of the accumulators (the ocean's with the
+        shape of its accumulators, the fluxes' whole)."""
         om = self.ocean
         out = {"tavg/" + k: ws["otav/" + k] / self.ntspos
                for k in OTAV_NAMES}
@@ -976,26 +1027,6 @@ class CoupledModel:
         out["tavg/sflx"] = -SOCN * acc["freshwater"] / at * tmsk
         out["tavg/taux"] = acc["taux"] / at / 1.035
         out["tavg/tauy"] = acc["tauy"] / at / 1.035
-        # GM eddy-induced (bolus) velocities for the residual overturning
-        # (mom_tavg.F O_gm_diag rows), from the end-of-segment tracers
-        if self.cfg.ocean.isopycmix and self.cfg.ocean.gent_mcwilliams:
-            from ..models.ocean.isopyc import compute_isopyc
-            iso_d = compute_isopyc(ocean.t, om.tmask, om.kmt, om.eos_c,
-                                   om.eos_to, om.eos_so, om.g,
-                                   self.cfg.ocean, om.cyclic,
-                                   addisop=om.addisop)
-            out["tavg/vetiso"] = iso_d.vetiso
-            out["tavg/vntiso"] = iso_d.vntiso
-            out["tavg/wbtiso"] = iso_d.vbtiso
-            out["tavg/diff_cbt_eff"] = om.diff_cbt + iso_d.K33
-        # convective-adjustment extent (O_save_convection analog)
-        if self.cfg.ocean.convection == "full":
-            from ..ops.convection import convection_extent
-            cdep, cnreg = convection_extent(
-                ocean.t, om.kmt, om.eos_c, om.eos_to, om.eos_so,
-                om.dztxcl, om.g.dzt)
-            out["tavg/convect_depth"] = cdep
-            out["tavg/convect_nreg"] = cnreg.to(cdep.dtype)
         return out
 
     def schedule(self, host):
@@ -1047,18 +1078,7 @@ class CoupledModel:
         ``seg_cg_iters`` the CG iterations of each ocean
         step and ``seg_trips`` the BiCGSTAB trips (humidity,
         temperature) of each atmosphere step."""
-        ws = pack_state(state)
-        ws.update(self.segment_inputs())
-        host = host_of(state)
-        logs = dict(cg_iters=[], trips_q=[], trips_t=[])
-        for name, flag in self.schedule(host):
-            ws.update(self.stage(name, flag, ws, host))
-            if name == "ocean":
-                logs["cg_iters"].append(ws["cg_iters"])
-            elif name == "atm":
-                logs["trips_q"].append(ws["trips_q"])
-                logs["trips_t"].append(ws["trips_t"])
-        return self._finish(ws, host, logs)
+        return run_stages(self, state)
 
     def run(self, state: CoupledState, nseg: int,
             eager: bool = False) -> CoupledState:
@@ -1086,6 +1106,51 @@ class CoupledModel:
                 state = self._graphs.run(state, inputs)
             self.relyr += seg_days / yrlen
         return state
+
+
+def run_stages(model, state: CoupledState) -> CoupledState:
+    """One segment's stages taken eagerly on a workspace: ``model``
+    gives the stages (``schedule``, ``stage``), the segment's inputs
+    (``segment_inputs``) and keeps the records (``_finish``)."""
+    ws = pack_state(state)
+    ws.update(model.segment_inputs())
+    host = host_of(state)
+    logs = dict(cg_iters=[], trips_q=[], trips_t=[])
+    for name, flag in model.schedule(host):
+        ws.update(model.stage(name, flag, ws, host))
+        if name == "ocean":
+            logs["cg_iters"].append(ws["cg_iters"])
+        elif name == "atm":
+            logs["trips_q"].append(ws["trips_q"])
+            logs["trips_t"].append(ws["trips_t"])
+    return model._finish(ws, host, logs)
+
+
+def bottom_water(t, kb):
+    """The tracers (nt, jmt, imt) of the bottom cells ``kb`` of ``t``."""
+    return torch.gather(t, 1, kb[None, None].expand(
+        t.shape[0], 1, -1, -1))[:, 0]
+
+
+def step_means(tT, tE, uf, vet, vnt, vbt, g, diff_cbt, ah):
+    """The per-step time means that read neighbours (tracer.F:420-443,
+    mom_tavg.F): of the temperature ``tT``, its east neighbours ``tE``,
+    the full velocity ``uf`` and the face velocities, with the grid
+    factors of ``g``."""
+    return dict(
+        temp=tT, u=uf[0], v=uf[1], w=vbt,
+        adv_fe_temp=vet * (tT + tE), adv_fn_temp=vnt * (tT + N(tT)),
+        adv_fb_temp=vbt * (tT + DN(tT)),
+        dif_fe_temp=ah * g.cstdxur[None] * (tE - tT),
+        dif_fn_temp=(ah * (g.csu * g.dyur)[None, :, None] * (N(tT) - tT)),
+        dif_fb_temp=diff_cbt * g.dzwr[1:][:, None, None] * (tT - DN(tT)))
+
+
+def bolus_means(iso, diff_cbt):
+    """The GM bolus velocities and the effective vertical diffusivity of
+    the isopycnal fields ``iso``."""
+    return {"tavg/vetiso": iso.vetiso, "tavg/vntiso": iso.vntiso,
+            "tavg/wbtiso": iso.vbtiso, "tavg/diff_cbt_eff": diff_cbt + iso.K33}
 
 
 # ----------------------------------------------------------------------

@@ -5,7 +5,10 @@ Port of ``uvic_tpu.diag.conservation``:
 
 - ConservationAudit: the ocean's heat and salt inventories and their
   drift, which ``coupler.run.Run`` logs at the end of each year and
-  writes into ``run_summary.json``.
+  writes into ``run_summary.json``; the deterministic inventories also
+  of a rank-decomposed ocean state (the blocks' column partials
+  gathered and summed on the host in the same order: bitwise the
+  unsharded ones).
 - FullAudit: the five-reservoir heat/water/carbon accounting of
   source/common/global_sums.F:74-260 (atmosphere, snow+ice, land, ocean)
   with the reference's unit conversions, and the ocean's segment
@@ -19,12 +22,14 @@ import numpy as np
 import torch
 
 from ..models.embm import constants as C
+from ..parallel.mesh import gather_field, local_block
+from .tsi import column_sum, host_sum
 
 
 class ConservationAudit:
     def __init__(self, ocean_model, deterministic=False):
         """deterministic=True: the device computes per-column partials
-        only and the host sums them in float64 in a fixed order, so the
+        only (level by level) and the host sums them in float64 in a fixed order, so the
         inventories do not depend on the device's reduction order."""
         g = ocean_model.params.grid
         tmask = ocean_model.tmask
@@ -38,13 +43,24 @@ class ConservationAudit:
         self.dvol = dvol
         self.deterministic = deterministic
 
-    def inventories(self, ocean_state) -> dict:
-        """{"heat": [K cm^3], "salt": [model-S cm^3]} host floats."""
+    def inventories(self, ocean_state, mesh=None) -> dict:
+        """{"heat": [K cm^3], "salt": [model-S cm^3]} host floats; with
+        ``mesh``, of the rank-decomposed ``ocean_state`` (every rank
+        calls it together; deterministic only)."""
         t = ocean_state.t
         if self.deterministic:
-            return {k: float(torch.sum(t[n] * self.dvol, dim=0).cpu()
-                             .numpy().astype(np.float64).sum())
+            dvol = self.dvol
+            jmt, imt = dvol.shape[-2:]
+            if mesh is not None:
+                dvol = local_block(dvol, mesh, jmt, imt)
+            cols = torch.stack([column_sum(t[n] * dvol) for n in range(2)])
+            if mesh is not None:
+                cols = gather_field(cols, mesh, jmt, imt)
+            return {k: host_sum(cols[n])
                     for n, k in enumerate(("heat", "salt"))}
+        if mesh is not None:
+            raise ValueError("inventories of a rank-decomposed state need "
+                             "deterministic=True")
         return {k: float(torch.sum(t[n] * self.dvol))
                 for n, k in enumerate(("heat", "salt"))}
 

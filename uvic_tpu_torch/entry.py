@@ -100,15 +100,21 @@ def _earth(restart=None, device=None, dtype="float32", cfg=None):
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
-    """The ocean part of ``__graft_entry__.dryrun_multichip``: the small
-    flagship on a ``(2, n/2)`` mesh (``(1, n)`` for odd or small n) of
-    ``n_devices`` ranks (gloo; ``device`` each rank's, ``cuda`` unless
-    asked otherwise), one rank-decomposed leapfrog step, no NaN.  The
+    """``__graft_entry__.dryrun_multichip`` on a ``(2, n/2)`` mesh
+    (``(1, n)`` for odd or small n) of ``n_devices`` ranks (gloo;
+    ``device`` each rank's, ``cuda`` unless asked otherwise):
+
+    1. the small flagship, one rank-decomposed leapfrog step;
+    2. one coupled segment (``ShardedCoupledModel``) of the reference's
+       part-2 configuration (``dryrun_coupled_config``: ``small_config``
+       in float32 with ``mobi_full()``, isopycnal mixing off), the ocean
+       on the mesh and the atmosphere, ice and land replicated.
+
+    No NaN in the ocean's ``t`` (and the atmosphere's ``at``).  The
     halo is derived from the configuration (``ShardedOceanStep.
     required_halo``) and the grid widened where a block could not hold
     it with the ghost columns (44 columns on a (2, 4) mesh; the 34 rows
-hold it on two bands).  Raises if
-    a rank fails."""
+    hold it on two bands).  Raises if a rank fails."""
     from .parallel.launch import spawn
     if n_devices % 2 == 0 and n_devices > 2:
         shape = (2, n_devices // 2)
@@ -136,6 +142,41 @@ def _dryrun_rank(mesh):
     for name in ("t", "u", "psi0"):
         if bool(torch.isnan(getattr(out, name)).any()):
             raise AssertionError(f"sharded step NaN in {name}")
+
+    # 2) the coupled segment, rank-decomposed
+    from .coupler.driver import CoupledModel
+    from .parallel.shard_segment import ShardedCoupledModel
+    cm = CoupledModel(dryrun_coupled_config(mesh.shape), device=mesh.device)
+    sm = ShardedCoupledModel(cm, mesh)
+    whole = sm.gather(sm.run_segment(sm.shard(cm.init_state())))
+    for part, a in (("ocean t", whole.ocean.t), ("atm at", whole.atm.at)):
+        if bool(torch.isnan(a).any()):
+            raise AssertionError(f"sharded coupled segment NaN in {part}")
+
+
+def dryrun_coupled_config(shape) -> ModelConfig:
+    """Part 2's configuration (``__graft_entry__.py:137-152``):
+    ``small_config`` (km 8) in float32 with ``mobi_full()``, isopycnal
+    and GM mixing off, dtts 43,200 s, dtuv and dtsf 1,800 s, tolrsf 1e8,
+    on (ny*ceil(34/ny), nx*ceil(40/nx)), widened in x where a block could
+    not hold the sharded step's halo with the ghost columns."""
+    ny, nx = shape
+    jmt = ny * -(-34 // ny)
+    imt = nx * -(-40 // nx)
+
+    def cfg_of(imt):
+        cfg = small_config(imt=imt, jmt=jmt, km=8)
+        return cfg.replace(
+            dtype="float32",
+            ocean=dataclasses.replace(
+                cfg.ocean, isopycmix=False, gent_mcwilliams=False,
+                dtts=43200.0, dtuv=1800.0, dtsf=1800.0, tolrsf=1e8),
+            bgc=mobi_full())
+    from .parallel.shard_step import ShardedOceanStep
+    w = ShardedOceanStep.required_halo(cfg_of(imt).ocean)
+    while not _holds_halo(imt, nx, w):
+        imt += nx
+    return cfg_of(imt)
 
 
 def _holds_halo(imt, nx, w):

@@ -43,6 +43,7 @@ F0 = np.array([0.875, 0.875, 0.900, 0.800, 0.900])
 FSMC_OF = np.array([0.85, 0.60, 0.05, 0.00, 0.50])
 GLMIN = np.array([1.0e-6] * 5)
 G_AREA = np.array([0.004, 0.004, 0.10, 0.10, 0.05])
+G_GROW = np.array([20.0] * 5)
 G_LEAF_0 = np.array([0.25] * 5)
 G_ROOT = np.array([0.25] * 5)
 G_WOOD = np.array([0.01, 0.01, 0.20, 0.20, 0.05])
@@ -81,6 +82,7 @@ SATCON = 0.0005      # saturated hydraulic conductivity KS [kg/m2/s]
 CLAPP_B = 6.6        # Clapp-Hornberger exponent (mtlm_state.F:70)
 Z1_REF = 10.0        # reference height [m]
 Z0_SOIL = 0.0003     # bare-soil roughness [m]
+RSS = 100.0          # bare-soil surface resistance [s/m]
 R_GAS = 287.05
 CP_AIR = 1005.0
 KARMAN_SQ = 0.16

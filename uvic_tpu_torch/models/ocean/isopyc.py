@@ -651,3 +651,37 @@ def iso_weight_stack(wp):
                         wbx[0][0], wbx[1][0], wbx[0][1], wbx[1][1],
                         wby[0][0], wby[1][0], wby[0][1], wby[1][1],
                         wp["k11c"], wp["k22c"]])
+
+
+def iso_tendency(t, wp, tmask, g, cyclic=True):
+    """The Redi/GM flux-divergence tendency of every tracer from the
+    weight pack (``iso_weight_pack``): algebraically the small-angle
+    ``isoflux`` and its divergence.  t: (nt, km, jmt, imt)."""
+    tE, tN = E(t), N(t)
+    tUP, tDN = UP(t), DN(t)
+
+    def vd0(f):           # vdiff kr=0: UP(f) - f (weights zero k=0)
+        return UP(f) - f
+
+    def vd1(f):           # vdiff kr=1: f - DN(f) (weights zero km-1)
+        return f - DN(f)
+
+    we, wn = wp["we"], wp["wn"]
+    fe = (wp["k11c"][None] * (tE - t)
+          - we[0][0][None] * vd0(t) - we[0][1][None] * vd1(t)
+          - we[1][0][None] * vd0(tE) - we[1][1][None] * vd1(tE))
+    fn = (wp["k22c"][None] * (tN - t)
+          - wn[0][0][None] * vd0(t) - wn[0][1][None] * vd1(t)
+          - wn[1][0][None] * vd0(tN) - wn[1][1][None] * vd1(tN))
+    wbx, wby = wp["wbx"], wp["wby"]
+    fb = -(wbx[0][0][None] * (t - W(t)) + wbx[1][0][None] * (tE - t)
+           + wbx[0][1][None] * (tDN - W(tDN))
+           + wbx[1][1][None] * (E(tDN) - tDN)
+           + wby[0][0][None] * (t - S(t)) + wby[1][0][None] * (tN - t)
+           + wby[0][1][None] * (tDN - S(tDN))
+           + wby[1][1][None] * (N(tDN) - tDN))
+    return ((fe * E(tmask)[None] - W(fe) * W(tmask)[None])
+            * g.cstdxtr[None, None]
+            + (fn * N(tmask)[None] - S(fn) * S(tmask)[None])
+            * (1.0 / (g.cst * g.dyt))[None, None, :, None]
+            + (UP(fb) - fb) * g.dztr[None, :, None, None])

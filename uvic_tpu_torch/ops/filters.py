@@ -112,6 +112,35 @@ def build_fir_filter(mask, npass_j, kind: str = "symmetric",
     return ZonalFilter(rows, mats, dtype, device)
 
 
+def fir_filter(field, mask, npass_j, kind: str = "symmetric",
+               cyclic: bool = True):
+    """The FIR smoother of filfir.F applied as unrolled passes: the
+    reference form that ``build_fir_filter``'s matrices are held
+    against.  ``mask`` broadcasts against ``field`` (..., jmt, imt);
+    row j takes ``npass_j[j]`` double passes."""
+    from .stencil import E, W, setbcx
+    npass_j = np.asarray(npass_j)
+    max_pass = int(npass_j.max()) if npass_j.size else 0
+    if max_pass == 0:
+        return field
+
+    def smooth(t):
+        if kind == "symmetric":
+            s = mask * (0.25 * (W(t) + E(t))
+                        + t * (1.0 - 0.25 * (W(mask) + E(mask))))
+        else:
+            s = mask * (0.25 * W(t) + 0.5 * t + 0.25 * E(t))
+        return setbcx(s, cyclic)
+
+    out = field * mask
+    for p in range(max_pass):
+        row_on = torch.as_tensor(npass_j > p, dtype=out.dtype,
+                                 device=out.device).reshape(-1, 1)
+        sm = smooth(smooth(out))
+        out = row_on * sm + (1.0 - row_on) * out
+    return torch.where(mask > 0, out, field)
+
+
 def _circular_segments(oc: np.ndarray, cyclic: bool):
     """Maximal ocean runs over interior columns 1..imt-2 of a {0,1} row,
     joined across the zonal seam when cyclic.  Returns (full_row, [ids])

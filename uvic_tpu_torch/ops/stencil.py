@@ -58,3 +58,19 @@ def setbcx(a, cyclic: bool = True):
         out[..., 0] = 0.0
         out[..., -1] = 0.0
     return out
+
+
+def zero_boundary_rows(a):
+    """Zero the meridional boundary rows j=0 and j=jmt-1 (a new
+    tensor)."""
+    out = a.clone()
+    out[..., 0, :] = 0.0
+    out[..., -1, :] = 0.0
+    return out
+
+
+def interior_mask(jmt: int, imt: int, dtype, device="cpu"):
+    """1 on computed cells (j in 1..jmt-2, i in 1..imt-2), else 0."""
+    m = torch.zeros((jmt, imt), dtype=dtype, device=device)
+    m[1:-1, 1:-1] = 1.0
+    return m

@@ -229,3 +229,23 @@ def gather_pytree(tree, mesh: RankMesh, jmt: int, imt: int,
             f.name: join(f.name, getattr(tree, f.name))
             for f in dataclasses.fields(tree)})
     return out if root is None or mesh.rank == root else None
+
+
+def shard_coupled(state, mesh: RankMesh, jmt: int, imt: int):
+    """A ``CoupledState`` with its ocean cut as ``shard_pytree`` cuts an
+    ``OceanState`` (psi0, psi1, ptd and ptdb replicated); the
+    atmosphere, ice, land, CPTS and sediment states stay whole on every
+    rank, and the host counters (``itt``, ``nats``) are the same on
+    every rank."""
+    return dataclasses.replace(
+        state, ocean=shard_pytree(state.ocean, mesh, jmt, imt))
+
+
+def gather_coupled(state, mesh: RankMesh, jmt: int, imt: int,
+                   root: int | None = None):
+    """Inverse of ``shard_coupled``: the ocean joined by
+    ``gather_pytree`` (on every rank, or on ``root`` only, None
+    elsewhere), the other components as they are."""
+    ocean = gather_pytree(state.ocean, mesh, jmt, imt, root=root)
+    return None if ocean is None else dataclasses.replace(state,
+                                                          ocean=ocean)

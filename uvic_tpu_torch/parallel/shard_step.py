@@ -268,6 +268,17 @@ class ShardedOceanStep:
         packed[..., self.wall_row:, :] = 0.0
         return unpack(packed, meta)
 
+    def full_velocity(self, ui, psi):
+        """Internal + external mode on the halo-padded block (``ui`` and
+        ``psi`` padded by the step's halo), masked; no ``setbcx``: the
+        padded block's periodic neighbours give the ghost columns the
+        values the global field's ``setbcx`` gives them."""
+        bag = self.bag
+        uext, vext = ext_mode_velocity(psi, bag.hr, bag.dxu2r, bag.dyu2r,
+                                       bag.csur)
+        return torch.stack([(ui[0] + uext[None]) * bag.umask,
+                            (ui[1] + vext[None]) * bag.umask])
+
     # ------------------------------------------------------------------
     def _core(self, c2dtts, c2dtuv, t_tau, tm1, u_int, um1_int,
               psi0, psi1, smf, stf, btf, source):
@@ -289,14 +300,8 @@ class ShardedOceanStep:
         if source is not None:
             source = pad_zeros(source, w)
 
-        def full_velocity(ui, psi):
-            uext, vext = ext_mode_velocity(psi, bag.hr, bag.dxu2r,
-                                           bag.dyu2r, bag.csur)
-            return torch.stack([(ui[0] + uext[None]) * umask,
-                                (ui[1] + vext[None]) * umask])
-
-        u_tau = full_velocity(u_int, psi0)
-        u_tm1 = full_velocity(um1_int, psi1)
+        u_tau = self.full_velocity(u_int, psi0)
+        u_tm1 = self.full_velocity(um1_int, psi1)
         vet, vnt, vbt, veu, vnu, vbu = adv_vel(u_tau[0], u_tau[1], bag,
                                                True)
 
@@ -351,16 +356,19 @@ class ShardedOceanStep:
         return crop(t_new, w), crop(u_int_new, w), crop(zu, w)
 
     # ------------------------------------------------------------------
-    def _sources(self, tm1, forcing, leapfrog):
+    def _sources(self, tm1, forcing, leapfrog, scan, c2dtts):
         """The column-local sources of the tracer step on the block:
         bgc (NPZD/MOBI) and penetrative shortwave, as ``_step`` takes
-        them; zero beyond the wall."""
+        them for the same ``scan``; zero beyond the wall."""
         m = self.m
         source = None
         if m.npzd is not None:
-            source = m.npzd[leapfrog].sources(
-                tm1, self.kmt, self.tmask, forcing.swr, forcing.aice,
-                forcing.hice, forcing.hsno, self.tlat_rad, forcing.relyr)
+            args = (tm1, self.kmt, self.tmask, forcing.swr, forcing.aice,
+                    forcing.hice, forcing.hsno, self.tlat_rad, forcing.relyr)
+            if scan:
+                source = m.npzd[True].sources(*args, c2dtts=c2dtts)
+            else:
+                source = m.npzd[leapfrog].sources(*args)
         if m.divpen is not None:
             ki = 5.0e-2
             psw = forcing.swr * 2.389e-8 * (1.0 + forcing.aice * (
@@ -376,11 +384,14 @@ class ShardedOceanStep:
             source[..., self.wall_row:, :] = 0.0
         return source
 
-    def step(self, state: OceanState, forcing, leapfrog: bool = True):
+    def step(self, state: OceanState, forcing, leapfrog: bool = True,
+             scan: bool = False):
         """One step on this rank's block: ``state`` and ``forcing`` as
         ``mesh.shard_pytree`` cuts them (the barotropic fields
         replicated); every rank calls it together.  The counterpart of
-        ``OceanModel._step``."""
+        ``OceanModel._step``; ``scan`` takes the bgc sources as
+        ``_step(..., scan=True)`` does (the leapfrog instance with the
+        step's interval, the coupled segment's ocean step)."""
         m = self.m
         cfg = m.cfg.ocean
         if leapfrog:
@@ -399,7 +410,7 @@ class ShardedOceanStep:
         btf = forcing.btf * self.tmask[0][None]
         if self.bhf is not None:
             btf[0] = btf[0] - self.bhf * self.tmask[0]
-        source = self._sources(tm1, forcing, leapfrog)
+        source = self._sources(tm1, forcing, leapfrog, scan, c2dtts)
 
         t_new, u_int_new, zu = self._core(
             c2dtts, c2dtuv, t_tau, tm1, u_int, um1_int, psi0, psi1, smf,
