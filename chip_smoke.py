@@ -189,10 +189,10 @@ Phases (each failure ends the run with a non-zero exit code):
    capture's counters, phase 5), in which each of the three kernels must
    run exactly once, with the device kernels per replayed step
    (profiled again, up to REPLAY_SESSIONS times, when the profiler lost
-   a kernel's record; see check_replay_counts); then the device
-   activities of one replayed earth segment (the eager segment's and
-   the nt=41 mixing step's sessions, ~36 s of recorded activities, went
-   to pay for phase 13).
+   a kernel's record; see check_replay_counts).  The sessions of the
+   eager and the replayed earth segment and of the nt=41 mixing step,
+   ~370,000, ~155,000 and ~138,000 recorded activities, went to pay for
+   phase 13 (the replayed segment's graph nodes are printed in phase 6).
 12. The ocean options, after the profiler (the first profiler session
    taken after this phase recorded no device activity).  Three flagship
    models (``entry._flagship`` with
@@ -246,7 +246,25 @@ Phases (each failure ends the run with a non-zero exit code):
    ocean step, B1 never; B3 on rank 0's block and B2 on rank 0's
    replicated solve (its last ocean step's inputs) against their plain
    versions; rank 0's segment and message times and peak allocated
-   memory.  A failing or hung rank (SHARDED_TIMEOUT_S) fails the phase.
+   memory.  Then, in the same ranks, the three option models of phase
+   12 (OPTION_MODELS at full width: walls, the full tensor, ppmix,
+   shortwave, Neptune, the 9-point operator, the Fourier filter and
+   Euler-backward mixing; dlm2 with the 3-D delimiter, Smagorinsky
+   mixing, ncon and implicit Coriolis; the implicit free surface,
+   QUICKER and biharmonic mixing), each through ``ShardedOceanStep``:
+   SHARDED_OPTIONS_SCHEDULE, a mixing step (Euler-backward for the
+   first) and a leapfrog step from phase 2's perturbed state.  The
+   gathered state is held against the unsharded steps on the generic
+   tracer step within TOL_SHARDED_OPTIONS (0; the gap from the default
+   steps, with B1 where the model takes it, printed beside it); every
+   rank's replicated fields (psi0, psi1, ptd, ptdb, ubar, ubarm1)
+   bitwise equal; every rank's counters, set to 0 before each model: B2
+   once a step pass (an Euler-backward mixing step takes two), B3 once
+   a pass under full convection and never under ncon, B1 never; B3 on
+   rank 0's block and B2 on rank 0's replicated solve (the
+   streamfunction's or the free surface's, its last step's inputs)
+   against their plain versions; rank 0's step and message times.  A
+   failing or hung rank (SHARDED_TIMEOUT_S) fails the phase.
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
@@ -264,11 +282,13 @@ inputs, `earth_accel` the phase 9 readings on the accelerated inputs,
 readings on the restoring step's inputs, `options` the phase 12
 readings by option model, the CG's by operator, `sharded` and
 `sharded_earth` the phase 13 readings on rank 0's flagship and earth
-inputs (B3, B2), and `launches_by_path`
+inputs (B3, B2), `sharded_options` those on rank 0's inputs of each
+option model, and `launches_by_path`
 the option models' launches a step, eager and per replayed step, and of
 an Euler-backward mixing step, `sharded` each rank's launches over
-phase 13's flagship steps and `sharded_earth_per_segment` over its
-earth segment) and the result line {"ok": true,
+phase 13's flagship steps, `sharded_earth_per_segment` over its
+earth segment and `sharded_options_per_step` over each option model's
+steps, by step pass, on every rank) and the result line {"ok": true,
 "device": {...}}.  Each phase's end prints its seconds (``phase N: ...
 s``), and the line before the card's name all of them.
 
@@ -426,7 +446,9 @@ TOL_GOLDEN = dict(a_sat=3e-3, a_shum=2e-4, i_area=2.5e-2, i_vol=4e-3,
 # JSON), the tracers whose surface flux and bottom flux the kernel checks
 # require non-zero.
 EARTH_BGC_YEAR0 = 1990
-EARTH_BGC_SEGMENTS = 2
+# one segment eager against its replay and one more replay timed (two
+# eager segments went to pay for phase 13's option models)
+EARTH_BGC_SEGMENTS = 1
 EARTH_BGC_MONTH = 6
 EARTH_BGC_RUN_TIME = dict(tsiint=5.0, timavgint=30.0, restint=30.0)
 EARTH_BGC_GOLDEN = "golden/regression/bgc_earth_month.json"
@@ -446,9 +468,11 @@ EARTH_BGC_BOTTOM = ("dic", "alk")
 ACCEL = 4.0
 SPINUP_START = "earth_accept"
 SPINUP_GOLDEN = "golden/regression/spinup_earth_year.json"
-EARTH_ACCEL_SEGMENTS = 2
+# one segment each, one bare replay (two went to pay for phase 13's
+# option models)
+EARTH_ACCEL_SEGMENTS = 1
 EARTH_OPTION_SEGMENTS = 1
-EARTH_OPTION_BARE = 2
+EARTH_OPTION_BARE = 1
 EARTH_OPTIONS = {
     "cpts": ("ice", dict(cpts=3)),
     "convect_brine": ("ocean", dict(convect_brine=True)),
@@ -557,6 +581,18 @@ SHARDED_TIMEOUT_S = 240
 # by round-off and the gaps read 1e-7 (t, u) to 6e-6 (ptd).
 TOL_SHARDED = dict(t=0.0, tm1=0.0, u=0.0, um1=0.0, psi0=0.0, psi1=0.0,
                    ptd=0.0, ptdb=0.0)
+# The rank-decomposed option models (phase 13's third part): in the same
+# ranks, each of OPTION_MODELS at full width through ShardedOceanStep, a
+# mixing step (Euler-backward where the model sets it) and a leapfrog
+# step from phase 2's perturbed state; the gathered state held against
+# the unsharded step on the generic tracer step within
+# TOL_SHARDED_OPTIONS of each field's largest magnitude.  The limit is
+# the flagship's and the earth segment's: the same arithmetic cell by
+# cell (the padded block holds what the whole field's rolls read, and
+# setbcx acts on it as on the whole field) and the barotropic solves
+# replicated, so any gap is a fault to find, not round-off.
+SHARDED_OPTIONS_SCHEDULE = (False, True)
+TOL_SHARDED_OPTIONS = 0.0
 # The rank-decomposed earth segment (phase 13's second part): in the same
 # ranks, one ShardedCoupledModel segment of the earth model from
 # EARTH_RESTART, the gathered state and time means held against the
@@ -1687,7 +1723,7 @@ def earth_bgc_phase():
     from uvic_tpu_torch.coupler.graphs import KERNEL_WRAPPERS
     relyr0 = m.relyr
     seg = eager_against_replayed(m, start, EARTH_BGC_SEGMENTS, "earth bgc",
-                                 bare=0, stage_graphs=True)
+                                 bare=1, stage_graphs=True)
     g = m._graphs
     surf = sorted(k for k in seg["eager_tavg"] if k.startswith("surf_"))
     say(f"  surf_* time means {len(surf)}; workspace inputs "
@@ -2273,29 +2309,6 @@ def golden_gaps_of(path):
     say(json.dumps({"tsi": path, "rows": len(rows), "worst_by_year": by_year,
                     "out_of_limits": failed}))
     return 0
-
-
-def earth_launches(m, state):
-    """Device activities of one replayed earth segment (torch.profiler,
-    CUDA activity only)."""
-    import warnings
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    counts = {}
-    relyr0 = m.relyr
-    for label, eager in (("replayed", False),):
-        m.relyr = relyr0
-        torch.cuda.synchronize()
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                m.run(state, 1, eager=eager)
-                torch.cuda.synchronize()
-        counts[label] = sum(
-            1 for e in prof.events()
-            if "CUDA" in str(getattr(e, "device_type", "")))
-    m.relyr = relyr0
-    return counts
 
 
 def earth_option_model(section=None, change=None, accel=1.0):
@@ -3300,10 +3313,11 @@ def options_phase():
 
 
 
-def sharded_rank(mesh, job):
+def sharded_rank(mesh, job, option_jobs):
     """Phase 13's rank: ``run_sharded`` on the card; rank 0 also returns
     the arguments of its last step's convection (B3's inputs on its
-    block) and barotropic solve (B2's, replicated)."""
+    block) and barotropic solve (B2's, replicated); then the earth
+    segment and the option models (``option_jobs``, a job each)."""
     import torch
     import uvic_tpu_torch.parallel.shard_step as ss_mod
     seen = {}
@@ -3338,6 +3352,50 @@ def sharded_rank(mesh, job):
         out["earth"]["inputs"] = inputs()
     finally:
         ss_mod.convct_full, ss_mod.tropic_step = convect, tropic
+    out["options"] = sharded_option_ranks(mesh, option_jobs)
+    return out
+
+
+def sharded_option_ranks(mesh, jobs):
+    """Phase 13's option models on a rank: each job through
+    ``run_sharded`` (its launch counters set to 0 before its steps);
+    rank 0 also returns, for each, the arguments of its last step's
+    convection (B3's on its block, under full convection) and its last
+    barotropic solve (B2's, replicated: the streamfunction's or the
+    surface pressure's, recorded at the model's solver)."""
+    import torch
+    import uvic_tpu_torch.parallel.shard_step as ss_mod
+    from uvic_tpu_torch.models.ocean.model import OceanModel
+    seen = {}
+    convect, solver_of = ss_mod.convct_full, OceanModel.barotropic_solver
+
+    def rec_convect(*a):
+        seen["convect"] = a
+        return convect(*a)
+
+    def rec_solver_of(model, leapfrog):
+        solver, c2dtsf = solver_of(model, leapfrog)
+
+        def rec_solver(*a):
+            seen["cg"] = a
+            return solver(*a)
+        return rec_solver, c2dtsf
+
+    out = {}
+    for name, job in jobs.items():
+        if mesh.rank == 0:
+            ss_mod.convct_full = rec_convect
+            OceanModel.barotropic_solver = rec_solver_of
+        try:
+            out[name] = ss_mod.run_sharded(mesh, **job)
+        finally:
+            ss_mod.convct_full = convect
+            OceanModel.barotropic_solver = solver_of
+        out[name]["inputs"] = {
+            k: [x.cpu().numpy() if torch.is_tensor(x) else x for x in v]
+            for k, v in seen.items()}
+        seen.clear()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3489,8 +3547,9 @@ def sharded_phase(m, state, forcing):
     """Phase 13: the flagship on SHARDED_MESH's eight ranks of one card,
     against the unsharded step; B3 and B2 on rank 0's inputs against
     their plain versions; then, in the same ranks, the earth segment
-    (``sharded_earth_check``).  Returns the kernel checks and the ranks'
-    launch counts."""
+    (``sharded_earth_check``) and the option models
+    (``sharded_option_check``).  Returns the kernel checks and the
+    ranks' launch counts."""
     import numpy as np
     import torch
     from uvic_tpu_torch.convert import ocean_state_to_numpy
@@ -3508,22 +3567,23 @@ def sharded_phase(m, state, forcing):
             m.fused_tracer = saved
         return ocean_state_to_numpy(s)
     ref, ref_fused = unsharded(False), unsharded(True)
-    job = dict(cfg=m.cfg, state=ocean_state_to_numpy(start),
-               forcing={k: getattr(forcing, k).cpu().numpy()
-                        for k in ("smf", "stf", "swr", "aice", "hice",
-                                  "hsno", "btf")},
-               schedule=list(SHARDED_SCHEDULE))
-    job["forcing"]["relyr"] = float(forcing.relyr)
+    job = sharded_job(m, start, forcing, SHARDED_SCHEDULE)
+    t0 = time.perf_counter()
+    options = sharded_option_references()
+    say(f"  the option models built, with their unsharded steps, in "
+        f"{time.perf_counter() - t0:.1f} s")
     n = SHARDED_MESH[0] * SHARDED_MESH[1]
     t0 = time.perf_counter()
     res = spawn(sharded_rank, SHARDED_MESH, "gloo", "cuda",
-                SHARDED_TIMEOUT_S, job)
+                SHARDED_TIMEOUT_S, job,
+                {name: o["job"] for name, o in options.items()})
     spawn_s = time.perf_counter() - t0
     r0 = res[0]
     got = r0["state"]
     say(f"  {n} ranks of a {SHARDED_MESH} mesh on one card in {spawn_s:.1f}"
         f" s (start, model builds, {len(SHARDED_SCHEDULE)} flagship steps, "
-        f"gather, the earth model builds, its segment, gathers); "
+        f"gather, the earth model builds, its segment, gathers, the "
+        f"{len(options)} option models' builds, steps and gathers); "
         f"transport: {r0['transport']}; CG iterations by step "
         f"{r0['cg_iters']}")
 
@@ -3579,9 +3639,141 @@ def sharded_phase(m, state, forcing):
         k.pop("per_call_fn", None)
         say_kernel("sharded rank 0", k)
     earth = sharded_earth_check(res)
+    opt = {name: sharded_option_check(name, o, [r["options"][name]
+                                                for r in res])
+           for name, o in options.items()}
     return dict(convect=k_convect, cg=k_cg, gaps=gaps, timing=timing,
-                spawn_s=spawn_s, earth=earth,
+                spawn_s=spawn_s, earth=earth, options=opt,
                 launches=[r["launches"] for r in res])
+
+
+def sharded_job(m, start, forcing, schedule):
+    """The keyword arguments of ``run_sharded`` for the model ``m`` from
+    the state ``start`` under ``forcing``."""
+    from uvic_tpu_torch.convert import ocean_state_to_numpy
+    job = dict(cfg=m.cfg, state=ocean_state_to_numpy(start),
+               forcing={k: getattr(forcing, k).cpu().numpy()
+                        for k in ("smf", "stf", "swr", "aice", "hice",
+                                  "hsno", "btf")},
+               schedule=list(schedule))
+    job["forcing"]["relyr"] = float(forcing.relyr)
+    return job
+
+
+def sharded_option_references():
+    """Phase 13's option models in the parent: each of OPTION_MODELS at
+    full width, phase 2's perturbed state, its unsharded steps over
+    SHARDED_OPTIONS_SCHEDULE on the generic tracer step and on the
+    default one (B1 where the model takes it), and the ranks' job."""
+    from uvic_tpu_torch.convert import ocean_state_to_numpy
+    from uvic_tpu_torch.entry import _flagship
+    out = {}
+    for name, spec in OPTION_MODELS.items():
+        m, state, forcing = _flagship(ocean=spec["ocean"],
+                                      grid=spec.get("grid"))
+        start = perturbed(m, state)
+        refs = {}
+        for fused in (False, True):
+            m.fused_tracer, saved = fused and m.fused_tracer, m.fused_tracer
+            try:
+                s = start
+                for lf in SHARDED_OPTIONS_SCHEDULE:
+                    s = m.step(s, forcing, leapfrog=lf)
+            finally:
+                m.fused_tracer = saved
+            refs[fused] = ocean_state_to_numpy(s)
+        out[name] = dict(model=m, ref=refs[False], ref_fused=refs[True],
+                         job=sharded_job(m, start, forcing,
+                                         SHARDED_OPTIONS_SCHEDULE))
+    return out
+
+
+def sharded_option_check(name, o, ranks):
+    """Phase 13's option model ``name`` in the parent: the gathered state
+    against the unsharded generic-step steps within TOL_SHARDED_OPTIONS
+    (the gap from the default steps printed beside it), every rank's
+    replicated fields bitwise alike, every rank's launches (B2 once a
+    step pass, B3 once a pass under full convection, B1 never), and B3 on
+    rank 0's block and B2 on rank 0's replicated solve against their
+    plain versions."""
+    import numpy as np
+    import torch
+    m, r0 = o["model"], ranks[0]
+    got, ref = r0["state"], o["ref"]
+    fields = ("t", "tm1", "u", "um1", "psi0", "psi1", "ptd", "ptdb",
+              "ubar", "ubarm1")
+
+    def gap(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    gaps = {k: gap(got[k], ref[k]) for k in fields}
+    say(f" {name}: {len(ranks)} ranks, blocks "
+        f"{tuple(r0['blocks']['t'].shape)}, CG iterations by step "
+        f"{r0['cg_iters']}; gathered state against the unsharded steps "
+        f"(generic tracer step), largest gap over each field's scale: "
+        f"{json.dumps(gaps)}")
+    say(f"  ... against the unsharded default steps"
+        f"{' (B1)' if m.fused_tracer else ''}: "
+        + json.dumps({k: gap(got[k], o["ref_fused"][k]) for k in fields}))
+    for k, g in gaps.items():
+        if not g <= TOL_SHARDED_OPTIONS:
+            raise AssertionError(f"sharded {name} {k}: gap {g} > "
+                                 f"{TOL_SHARDED_OPTIONS}")
+    if int(got["itt"]) != int(ref["itt"]) \
+            or int(got["nconv"]) != int(ref["nconv"]):
+        raise AssertionError(f"sharded {name}: itt/nconv differ")
+    for rank, r in enumerate(ranks):
+        for k, v in r["barotropic"].items():
+            if not np.array_equal(v, r0["barotropic"][k]):
+                raise AssertionError(f"sharded {name}: rank {rank}'s {k} "
+                                     "differs from rank 0's")
+    eb = m.cfg.ocean.eb
+    passes = sum(2 if (eb and not lf) else 1
+                 for lf in SHARDED_OPTIONS_SCHEDULE)
+    full = m.cfg.ocean.convection == "full"
+    want = {"fct_tracer_step": 0,
+            "apply_region_means": passes if full else 0,
+            "congrad": passes}
+    for rank, r in enumerate(ranks):
+        if r["launches"] != want:
+            raise AssertionError(f"sharded {name}: rank {rank} launched "
+                                 f"{r['launches']}, the path {want}")
+    say(f"  {name}: {', '.join(sorted(r0['barotropic']))} bitwise equal on "
+        f"all {len(ranks)} ranks; launches on every rank over "
+        f"{len(SHARDED_OPTIONS_SCHEDULE)} steps ({passes} step passes) "
+        f"{json.dumps(want)}")
+    timing = dict(step_ms=[1e3 * t for t in r0["step_s"]],
+                  exchange_ms=[1e3 * t for t in r0["exchange_s"]],
+                  messages=r0["messages"])
+    say(f"  {name}: {len(ranks)} ranks sharing one H100 (a check of the "
+        f"machinery, not a speed-up): rank 0's steps "
+        f"{[round(t, 1) for t in timing['step_ms']]} ms (mixing, leapfrog),"
+        f" {[round(t, 1) for t in timing['exchange_ms']]} ms of them in "
+        f"messages and host staging, the first waiting for the slowest "
+        f"rank's start; {r0['messages']} messages; {card_line()}")
+
+    def cuda(v):
+        return tuple(torch.as_tensor(x, device="cuda")
+                     if isinstance(x, np.ndarray) else x for x in v)
+    out = dict(gaps=gaps, timing=timing, passes=passes,
+               launches=[r["launches"] for r in ranks])
+    if full:
+        say(f" {name}: apply_region_means on rank 0's block (its last "
+            "step's inputs)")
+        out["convect"] = check_convect({"convect": cuda(r0["inputs"]
+                                                        ["convect"])})
+    elif "convect" in r0["inputs"]:
+        raise AssertionError(f"sharded {name}: full convection ran")
+    say(f" {name}: congrad on rank 0's replicated solve (its last step's "
+        "inputs)")
+    solver, _ = m.barotropic_solver(SHARDED_OPTIONS_SCHEDULE[-1])
+    out["cg"] = check_cg_solve(solver, cuda(r0["inputs"]["cg"]),
+                               f"sharded {name} rank 0",
+                               solution_projection(m))
+    for key in ("convect", "cg"):
+        if key in out:
+            out[key].pop("per_call_fn", None)
+            say_kernel(f"sharded {name} rank 0", out[key])
+    return out
 
 
 PHASE_CLOCK = []     # (number, start) of the phase that runs
@@ -3826,17 +4018,13 @@ def main(argv):
     per_step2 = check_replay_counts(m, state, forcing, "nt=2")
     per_step41 = check_replay_counts(m41, s41, f41, "nt=41", ("leapfrog",))
     say(f"  kernel launches per MOBI step: {json.dumps(per_step41)}")
-    earth_dev = earth_launches(earth["model"], earth["start"])
-    say(f"  device activities of one earth segment: "
-        f"{json.dumps(earth_dev)} (graph nodes of a replayed segment: "
-        f"{earth['graph_nodes']})")
     phase("phase 12: the ocean options at full width (three flagship "
           "models with options on top) and every option in the small form")
     optres = options_phase()
 
-    phase(f"phase 13: the rank-decomposed flagship and earth segment, "
-          f"{SHARDED_MESH} mesh of ranks sharing the card, against the "
-          "unsharded step and segment")
+    phase(f"phase 13: the rank-decomposed flagship, earth segment and "
+          f"option models, {SHARDED_MESH} mesh of ranks sharing the card, "
+          "against the unsharded steps and segment")
     shard = sharded_phase(m, state, forcing)
 
     by_path = {k: {"nt2_eager": launches[k],
@@ -3868,7 +4056,10 @@ def main(argv):
                       for kind, c in r["counts"].items()},
                    "sharded": [c[k] for c in shard["launches"]],
                    "sharded_earth_per_segment":
-                       [c[k] for c in shard["earth"]["launches"]]}
+                       [c[k] for c in shard["earth"]["launches"]],
+                   "sharded_options_per_step": {
+                       name: [c[k] / r["passes"] for c in r["launches"]]
+                       for name, r in shard["options"].items()}}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -3953,6 +4144,14 @@ def main(argv):
             entry["sharded_earth"] = {key: ke[key] for key in (
                 "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "iters") if key in ke}
+            entry["sharded_options"] = {
+                name: {key: r[kk][key] for key in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "iters")
+                    if key in r[kk]}
+                for name, r in shard["options"].items()
+                for kk in [{"apply_region_means": "convect",
+                            "congrad": "cg"}[k["name"]]] if kk in r}
         if k["name"] == "apply_region_means":
             kbr = opts["brine_convect"]
             entry["earth_brine"] = {key: kbr[key] for key in (
@@ -3964,7 +4163,8 @@ def main(argv):
         f"{eager41_ms:.1f} ms, replayed {scan41_ms:.1f} ms "
         f"({per_step41['leapfrog']} kernels); earth segment eager "
         f"{earth['eager_ms']:.1f} ms, replayed {earth['replay_ms']:.1f} ms "
-        f"({earth_dev['replayed']}), inside Run {earth['run_ms']:.1f} ms "
+        f"({earth['graph_nodes']} graph nodes), inside Run "
+        f"{earth['run_ms']:.1f} ms "
         f"({EARTH_YEAR} segments against the golden tsi); earth bgc "
         f"segment eager {bgc['eager_ms']:.1f} ms, replayed "
         f"{bgc['replay_ms']:.1f} ms, inside Run {bgc['run_ms']:.1f} ms "
@@ -3975,8 +4175,10 @@ def main(argv):
         f"{shard['timing']['exchange_ms']:.1f} ms of messages, sharded "
         f"earth segment {shard['earth']['timing']['segment_ms']:.1f} ms "
         f"with {shard['earth']['timing']['exchange_ms']:.1f} ms of "
-        f"messages ({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one "
-        "card)")
+        f"messages, sharded option models' leapfrog steps "
+        + ", ".join(f"{name} {r['timing']['step_ms'][-1]:.1f} ms"
+                    for name, r in shard["options"].items())
+        + f" ({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one card)")
     phase(None)
     say("phase seconds: " + json.dumps(
         {n: round(t, 1) for n, t in PHASE_S.items()}))

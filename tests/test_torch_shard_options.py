@@ -1,18 +1,22 @@
-"""Which ocean options the rank-decomposed step takes, and how.
+"""Every ocean option on the rank-decomposed step, and what the
+reference's sharded core does with them.
 
-``ShardedOceanStep`` refuses, with a ``ConfigError`` that names them,
-the options the reference's sharded step refuses by assertion (the
+``ShardedOceanStep`` takes every option of the port's ``OceanModel`` and
+computes it as the unsharded ``step`` computes it.  The reference's
+explicit sharded core refuses five of them by assertion (the
 surface-pressure modes, ppmix, walls, Smagorinsky mixing, QUICKER) and
-two that the reference's sharded step takes without a word but computes
-otherwise than its unsharded step: Euler-backward mixing (its mixing
-step is a forward step either way) and the 9-point operator (whose
-checkerboard deflation leaves psi's ghost columns other than the
-columns they stand for, which the window's periodic images cannot
-reproduce; shown below on the reference itself).  The
-options its core takes are computed as the port's unsharded ``_step``
-computes them: each runs on a (2, 2) mesh of gloo CPU ranks, a forward
-and two leapfrog steps, within 1e-12 of the unsharded step (generic
-tracer path), the replicated fields bitwise equal on every rank.
+takes two without a word but computes them otherwise than its
+unsharded step: Euler-backward mixing (its mixing step is a forward
+step either way) and the 9-point operator (whose checkerboard deflation
+leaves psi's ghost columns other than the columns they stand for,
+which its window's periodic images cannot reproduce; shown below on
+the reference itself).  Each option runs on a (2, 2) mesh of gloo CPU
+ranks, a mixing and two leapfrog steps, within 1e-12 of the port's
+unsharded step (generic tracer path), the replicated fields (the
+barotropic fields and the surface-pressure modes' ubar) bitwise equal
+on every rank; walls also on (1, 4) and (2, 4), where a rank has a
+wall on one side only, at 34x44 (the halo of 11 needs 11 columns a
+rank).
 
 The polar bottom drag is the reference's own gap: its sharded core
 takes the scalar ``cdbot`` (``uvic_tpu/parallel/shard_step.py:197-201``)
@@ -37,7 +41,6 @@ from uvic_tpu.parallel.mesh import make_mesh as j_make_mesh
 from uvic_tpu.parallel.mesh import shard_pytree as j_shard_pytree
 from uvic_tpu.parallel.shard_step import ShardedOceanStep as JStep
 
-from uvic_tpu_torch.checks import ConfigError
 from uvic_tpu_torch.config import BgcConfig, small_config
 from uvic_tpu_torch.models.ocean.model import make_ocean
 from uvic_tpu_torch.parallel.mesh import RankMesh
@@ -50,8 +53,10 @@ from torch_shard_runs import (BASE, TOL_JAX, assert_jax_tolerances,
 
 SHAPE = (2, 2)
 SCHEDULE = (False, True, True)
-# option -> (ocean options, grid options, what the message names)
-REFUSED = {
+# the options the reference's sharded core refuses, or takes but computes
+# otherwise than its unsharded step: option -> (ocean options, grid
+# options, what the reference's assertion names)
+REFERENCE_CORE = {
     "surface_pressure": (dict(barotropic="surface_pressure"), {},
                          "barotropic=surface_pressure"),
     "free_surface": (dict(barotropic="implicit_free_surface"), {},
@@ -67,19 +72,31 @@ REFUSED = {
 # what the reference's sharded step takes but computes otherwise than
 # its unsharded step
 REFERENCE_GAPS = ("eb", "sf_npt_9")
-# options of OceanModel._step that the sharded core computes as it does
+# options of OceanModel.step that the sharded core computes as it does:
+# option -> (ocean options, grid options)
 COMPUTED = {
-    "neptune": dict(neptune=True),
-    "full_tensor": dict(isopycmix=True, gent_mcwilliams=True,
-                        full_tensor=True),
-    "biharmonic": dict(hmix="biharmonic"),
-    "acor": dict(acor=0.5),
-    "ncon_bryan_lewis_shortwave": dict(convection="ncon", ncon=2,
-                                       vmix="bryan_lewis", shortwave=True),
-    "brine": dict(convect_brine=True),
-    "npzd": dict(),
-    "plain": dict(),
+    "neptune": (dict(neptune=True), {}),
+    "full_tensor": (dict(isopycmix=True, gent_mcwilliams=True,
+                         full_tensor=True), {}),
+    "biharmonic": (dict(hmix="biharmonic"), {}),
+    "acor": (dict(acor=0.5), {}),
+    "ncon_bryan_lewis_shortwave": (dict(convection="ncon", ncon=2,
+                                        vmix="bryan_lewis", shortwave=True),
+                                   {}),
+    "brine": (dict(convect_brine=True), {}),
+    "npzd": (dict(), {}),
+    "plain": (dict(), {}),
+    # taken before without a test
+    "fourier": (dict(hlat_filter="fourier"), {}),
+    "dlm2_fct_3d": (dict(fct_variant="dlm2", fct_3d=True), {}),
+    "dm_taper": (dict(dm_taper=True), {}),
+    "dtxcel_deep": (dict(dtxcel_deep=4.0), {}),
+    "gthflx": (dict(gthflx=True), {}),
+    **{name: (ocean, grid)
+       for name, (ocean, grid, _) in REFERENCE_CORE.items()},
 }
+# walls where a rank has a wall on one side only: mesh -> imt
+WALL_MESHES = {(1, 4): 44, (2, 4): 44}
 POLAR = dict(cdbot_polar_scale=20.0)
 # three leapfrog steps show the reference's polar-drag gap (one JAX
 # compile each way fewer than with a mixing step first)
@@ -87,7 +104,8 @@ POLAR_SCHEDULE = (True, True, True)
 
 
 def _port_config(ocean, grid=None, bgc=None):
-    cfg = small_config(imt=40, jmt=34, km=8)
+    grid = dict(grid or {})
+    cfg = small_config(imt=grid.pop("imt", 40), jmt=34, km=8)
     cfg = cfg.replace(ocean=dataclasses.replace(cfg.ocean,
                                                 **{**BASE, **ocean}))
     if grid:
@@ -97,12 +115,14 @@ def _port_config(ocean, grid=None, bgc=None):
     return cfg
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
+@pytest.mark.parametrize("name", sorted(REFERENCE_CORE))
 def test_refused_options_are_named(name):
-    ocean, grid, named = REFUSED[name]
+    """The reference's sharded core still refuses six of the options by
+    name (and takes the other two); the port's step takes all eight."""
+    ocean, grid, named = REFERENCE_CORE[name]
     m = make_ocean(_port_config(ocean, grid), device="cpu")
-    with pytest.raises(ConfigError, match=named):
-        ShardedOceanStep(m, RankMesh(SHAPE, device="cpu"))
+    ss = ShardedOceanStep(m, RankMesh((1, 1), device="cpu"))
+    assert ss.w == ShardedOceanStep.halo_width(m.cfg.ocean, m.cyclic)
     if name in REFERENCE_GAPS:
         return
     jc, _ = configs(ocean)
@@ -121,20 +141,25 @@ def _brine_forcing(grid, tmask0, nt):
     return f
 
 
+def _case(name, ocean, grid):
+    """(port config, primed state, forcing) of a computed option."""
+    bgc = BgcConfig(suite="npzd") if name == "npzd" else None
+    tc = _port_config(ocean, grid, bgc=bgc)
+    m = make_ocean(tc, device="cpu")
+    g = m.params.grid
+    forcing = (_brine_forcing(g, np.asarray(m.params.topo.tmask)[0], m.nt)
+               if name == "brine" else wind(g, m.nt))
+    return tc, port_setup(tc, forcing), forcing
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Every computed option: the port's unsharded and sharded runs; the
-    polar-drag case in both packages, sharded and not.  One spawn."""
+    polar-drag case in both packages, sharded and not.  One spawn a
+    mesh."""
     out, jobs = {}, []
-    for name, ocean in COMPUTED.items():
-        bgc = BgcConfig(suite="npzd") if name == "npzd" else None
-        tc = _port_config(ocean, bgc=bgc)
-        m = make_ocean(tc, device="cpu")
-        g = m.params.grid
-        forcing = (_brine_forcing(g, np.asarray(m.params.topo.tmask)[0],
-                                  m.nt)
-                   if name == "brine" else wind(g, m.nt))
-        primed = port_setup(tc, forcing)
+    for name, (ocean, grid) in COMPUTED.items():
+        tc, primed, forcing = _case(name, ocean, grid)
         out[name] = dict(port=port_steps(tc, primed, forcing, SCHEDULE))
         jobs.append(job(tc, primed, forcing, SCHEDULE))
 
@@ -157,10 +182,23 @@ def runs():
     for name, res in zip(list(COMPUTED) + ["polar_drag"],
                          sharded(SHAPE, jobs)):
         out[name]["sharded"] = res
+
+    # walls on meshes where a rank has a wall on one side only
+    for shape, imt in WALL_MESHES.items():
+        tc, primed, forcing = _case("walls", {}, dict(cyclic=False,
+                                                      imt=imt))
+        res, = sharded(shape, [job(tc, primed, forcing, SCHEDULE)])
+        out[_walls_name(shape)] = dict(
+            port=port_steps(tc, primed, forcing, SCHEDULE), sharded=res)
     return out
 
 
-@pytest.mark.parametrize("name", sorted(COMPUTED))
+def _walls_name(shape):
+    return "walls_%dx%d" % shape
+
+
+@pytest.mark.parametrize("name", sorted(COMPUTED) + sorted(
+    _walls_name(shape) for shape in WALL_MESHES))
 def test_computed_options_match_the_unsharded_step(runs, name):
     r = runs[name]
     assert_port_equal(r["sharded"]["state"], r["port"])

@@ -7,6 +7,7 @@ by name: it imports the port and nothing of JAX.
 import time
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from uvic_tpu_torch.convert import ocean_state_from_numpy
@@ -125,6 +126,58 @@ def coupled_segment(mesh, cfg, itt=None, halo=None):
             whole, tavg, sm.last_forcing),
         digest=replicated_digest(out), cg_iters=sm.seg_cg_iters.numpy(),
         trips=sm.seg_trips.numpy())
+
+
+def transient_forcing():
+    """A transient forcing with changes within the first two segments
+    of the small configuration's calendar (years 0 to 0.028), the port's
+    twin of ``tests/test_torch_forcing.py``'s."""
+    from uvic_tpu_torch.io.forcing import TransientForcing, TransientSeries
+    S = TransientSeries
+    return TransientForcing(
+        co2=S(np.array([0.0, 0.03]), np.array([280.0, 1120.0])),
+        solar=S.constant(1.368e6),
+        volcanic=S(np.array([0.0, 0.01, 0.02]), np.array([0.0, 3e4, 0.0])),
+        c14=S.constant(0.0),
+        sulph=S(np.array([0.0, 0.03]), np.array([0.01, 0.05])),
+        agg=S(np.array([0.0, 0.03]), np.array([0.0, 2e3])),
+        landice=S(np.array([0.0, 0.03]), np.array([0.4, 1.0])))
+
+
+def coupled_model(cfg, device, t0=None, transient=False, awind_clim=None):
+    """A ``CoupledModel`` of ``cfg`` and its ``init_state(t0)``, with the
+    transient forcing of ``transient_forcing`` and the anomalous-wind
+    climatology ``awind_clim`` when asked for."""
+    m = CoupledModel(cfg, device=device)
+    state = m.init_state(t0)
+    if transient:
+        m.set_transient_forcing(transient_forcing())
+    if awind_clim is not None:
+        m.awind.set_climatology(awind_clim)
+    return m, state
+
+
+def coupled_run(mesh, cfg, t0=None, nseg=1, transient=False,
+                awind_clim=None):
+    """``nseg`` segments of ``ShardedCoupledModel.run`` from
+    ``coupled_model``'s state: on rank 0 the gathered state, time means
+    and forcing after the last (``coupled_numpy``), and on every rank
+    its ``replicated_digest``, and each segment's CG iterations and
+    BiCGSTAB trips."""
+    m, state = coupled_model(cfg, mesh.device, t0, transient, awind_clim)
+    sm = ShardedCoupledModel(m, mesh)
+    block = sm.shard(state)
+    cg_iters, trips = [], []
+    for _ in range(nseg):
+        block = sm.run(block, 1)
+        cg_iters.append(sm.seg_cg_iters.numpy())
+        trips.append(sm.seg_trips.numpy())
+    whole = sm.gather(block, root=0)
+    tavg = sm.gather_tavg(root=0)
+    return dict(
+        state=None if whole is None else coupled_numpy(
+            whole, tavg, sm.last_forcing),
+        digest=replicated_digest(block), cg_iters=cg_iters, trips=trips)
 
 
 def coupled_roundtrip(mesh, cfg):

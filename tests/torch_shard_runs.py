@@ -119,9 +119,9 @@ def one_thread():
 
 
 def port_steps(tc, primed, forcing, schedule):
-    """The port's unsharded ``_step`` over ``schedule``, on the tracer
-    path the sharded core takes (the generic step, ``fused_tracer``
-    off)."""
+    """The port's unsharded ``step`` over ``schedule`` (``_step``; a
+    mixing step of an ``eb`` model Euler-backward), on the tracer path
+    the sharded core takes (the generic step, ``fused_tracer`` off)."""
     with one_thread():
         return _port_steps(tc, primed, forcing, schedule)
 
@@ -132,7 +132,7 @@ def _port_steps(tc, primed, forcing, schedule):
     s = ocean_state_from_numpy(primed, "cpu")
     f = t_forcing(forcing)
     for lf in schedule:
-        s = tm._step(s, f, leapfrog=lf)
+        s = tm.step(s, f, leapfrog=lf)
     return ocean_state_to_numpy(s)
 
 
@@ -202,16 +202,20 @@ def assert_jax_tolerances(got, ref, tol_u=TOL_JAX["u"]):
 
 def assert_port_equal(got, ref):
     """The sharded step against the port's unsharded one: every field
-    within TOL_PORT of its scale, itt and nconv exactly."""
-    for name in FIELDS:
+    (the surface-pressure modes' ubar and ubarm1 too) within TOL_PORT of
+    its scale, itt and nconv exactly."""
+    for name in FIELDS + ("ubar", "ubarm1"):
         assert rel_gap(got[name], ref[name]) <= TOL_PORT, name
     assert int(got["itt"]) == int(ref["itt"])
     assert int(got["nconv"]) == int(ref["nconv"])
 
 
 def assert_replicated(result):
-    """Every rank's psi0, psi1, ptd and ptdb bitwise equal to rank 0's."""
+    """Every rank's replicated fields (psi0, psi1, ptd and ptdb, and
+    ubar and ubarm1) bitwise equal to rank 0's."""
     first = result["ranks_barotropic"][0]
+    assert set(BAROTROPIC) <= set(first)
     for rank, fields in enumerate(result["ranks_barotropic"]):
-        for name in BAROTROPIC:
+        assert set(fields) == set(first), rank
+        for name in first:
             assert np.array_equal(fields[name], first[name]), (rank, name)

@@ -20,7 +20,7 @@ import torch
 
 from ...ops.advection import (centered_flux, fct_flux, quicker_flux,
                               upstream_flux)
-from ...ops.stencil import DN, E, N, S, UP, W, setbcx
+from ...ops.stencil import DN, E, N, S, UP, W, setbcx, zero_east
 from ...ops.tridiag import invtri_columns
 
 
@@ -65,11 +65,7 @@ def adv_vel(u, v, g, cyclic=True):
     vue = ((vet * dus_j + N(vet) * dun_j) * E(duw)
            + (E(vet) * dus_j + N(E(vet)) * dun_j) * due) \
         * g.dyur[None, :, None] * E(g.dxtr[None, None, :])
-    if cyclic:
-        veu = setbcx(vue, cyclic)
-    else:
-        veu = vue.clone()
-        veu[..., -1] = 0.0
+    veu = setbcx(vue, cyclic) if cyclic else zero_east(vue, cyclic)
 
     # bottom face of U cells: area-weighted average of vbt (adv_vel.F:226-249)
     dyn = dun_j * N(g.cst[None, :, None])

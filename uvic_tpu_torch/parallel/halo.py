@@ -10,6 +10,14 @@ because the halo is wider than the stencil depth.  The exchange is one
 round of point-to-point messages along the cyclic x ring, then one along
 the walled y line, through ``mesh.RankMesh.exchange``.
 
+``exchange_pad`` and ``extend_x`` are the reference's: outside the
+window's stored columns they place the periodic images of its real
+columns.  The port's step pads with what the whole field's rolls read
+instead (``exchange_pad_ring``, ``extend_x(..., ring=True)``, ``BlockCut``):
+the ring of imt columns on which the ghost columns 0 and imt-1 are
+columns of their own, so that a walled window, and ghost columns that
+are not the columns they duplicate, compute as on the whole field.
+
 Grid conventions (``core/grid.py``): arrays carry duplicated zonal ghost
 columns (col 0 = col imt-2, col imt-1 = col 1), so the true zonal period
 is imt-2.  Static per-cell constants (grid factors, masks, kmt, operator
@@ -64,17 +72,28 @@ TAG_EAST, TAG_WEST, TAG_NORTH, TAG_SOUTH = 1, 2, 3, 4
 # columns; positions >= imt are extra images).  Rows beyond jmt - 1
 # are "beyond the wall": clamp (grid factors) or zero (masked fields).
 
+def x_images(p, n: int, ring: bool = False) -> np.ndarray:
+    """The stored column each window position ``p`` holds: itself in
+    [0, n); outside, the periodic image ((p - 1) mod (n - 2)) + 1 of the
+    real columns, or with ``ring`` the column p mod n that the whole
+    field's rolls read (on that ring the ghost columns 0 and n-1 are
+    columns of their own)."""
+    p = np.asarray(p)
+    image = p % n if ring else ((p - 1) % (n - 2)) + 1
+    return np.where((p >= 0) & (p < n), p, image)
+
+
 def extend_x(a: np.ndarray, w: int, axis: int = -1,
-             n_out: int | None = None) -> np.ndarray:
+             n_out: int | None = None, ring: bool = False) -> np.ndarray:
     """Periodic window extension: output position p in [0, n) keeps the
     stored column (incl. the duplicated ghosts); outside, p maps to the
-    periodic image ((p - 1) mod (n - 2)) + 1."""
+    periodic image ((p - 1) mod (n - 2)) + 1 (``x_images``; with
+    ``ring``, to p mod n)."""
     a = np.asarray(a)
     n = a.shape[axis]
     n_out = n if n_out is None else n_out
-    p = np.arange(-w, n_out + w)
-    idx = np.where((p >= 0) & (p < n), p, ((p - 1) % (n - 2)) + 1)
-    return np.take(a, idx, axis=axis)
+    return np.take(a, x_images(np.arange(-w, n_out + w), n, ring),
+                   axis=axis)
 
 
 def extend_y(a: np.ndarray, w: int, axis: int = -1,
@@ -97,10 +116,11 @@ def extend_y(a: np.ndarray, w: int, axis: int = -1,
 
 def extend_yx(a: np.ndarray, w: int, fill: str = "clamp",
               jmt_p: int | None = None,
-              imt_p: int | None = None) -> np.ndarray:
-    """Extend trailing (jmt, imt) axes: x periodic, y clamp/zero."""
-    return extend_y(extend_x(a, w, axis=-1, n_out=imt_p), w, axis=-2,
-                    fill=fill, n_out=jmt_p)
+              imt_p: int | None = None, ring: bool = False) -> np.ndarray:
+    """Extend trailing (jmt, imt) axes: x periodic (``ring``: as
+    ``extend_x``), y clamp/zero."""
+    return extend_y(extend_x(a, w, axis=-1, n_out=imt_p, ring=ring), w,
+                    axis=-2, fill=fill, n_out=jmt_p)
 
 
 class ExtendedStatics:
@@ -109,12 +129,14 @@ class ExtendedStatics:
 
     jmt_p/imt_p: PADDED window sizes (multiples of ny/nx); positions
     beyond the reference layout carry periodic x images / beyond-wall
-    y fill, so any grid shards on any mesh.  A view keeps its constant's
-    dtype and device."""
+    y fill, so any grid shards on any mesh; ``ring``: the x images that
+    the whole field's rolls read (``x_images``).  A view keeps its
+    constant's dtype and device."""
 
     def __init__(self, arrays: dict, axes: dict, jmt: int, imt: int,
                  ny: int, nx: int, w: int, fills: dict | None = None,
-                 jmt_p: int | None = None, imt_p: int | None = None):
+                 jmt_p: int | None = None, imt_p: int | None = None,
+                 ring: bool = False):
         jmt_p = jmt if jmt_p is None else jmt_p
         imt_p = imt if imt_p is None else imt_p
         if jmt_p % ny or imt_p % nx:
@@ -133,11 +155,12 @@ class ExtendedStatics:
             fill = fills.get(name, "clamp")
             h = a.detach().cpu().numpy()
             if kind == "x":
-                e = extend_x(h, w, axis=-1, n_out=imt_p)
+                e = extend_x(h, w, axis=-1, n_out=imt_p, ring=ring)
             elif kind == "y":
                 e = extend_y(h, w, axis=-1, fill=fill, n_out=jmt_p)
             else:
-                e = extend_yx(h, w, fill=fill, jmt_p=jmt_p, imt_p=imt_p)
+                e = extend_yx(h, w, fill=fill, jmt_p=jmt_p, imt_p=imt_p,
+                              ring=ring)
             self.ext[name] = torch.as_tensor(e, device=a.device)
 
     def local(self, name: str, iy: int, ix: int):
@@ -194,9 +217,12 @@ def exchange_pad(f, w: int, mesh, gx: int = 2):
             [(send_e, east, TAG_EAST), (send_w, west, TAG_WEST)],
             [(send_e, west, TAG_EAST), (send_w, east, TAG_WEST)])
     f = torch.cat([wh, f, eh], dim=-1)
+    return _exchange_y(f, w, mesh)
 
-    # --- y line: ranks at the walls receive zeros, matching the masked
-    # wall rows
+
+def _exchange_y(f, w: int, mesh):
+    """The y round of the exchange on the x-padded block: ranks at the
+    walls receive zeros, matching the masked wall rows."""
     ly = f.shape[-2]
     north, south = mesh.y_neighbours()
     sends, recvs = [], []
@@ -213,6 +239,39 @@ def exchange_pad(f, w: int, mesh, gx: int = 2):
     sh = got.pop(0) if south is not None else zeros   # from the south
     nh = got.pop(0) if north is not None else zeros   # from the north
     return torch.cat([sh, f, nh], dim=-2)
+
+
+def exchange_pad_ring(f, w: int, mesh, pad: int = 0):
+    """``exchange_pad`` with the x images of the ring of imt columns that
+    the whole field's rolls go round (``x_images(..., ring=True)``): the
+    window position p >= imt holds column p - imt, p < 0 column imt + p,
+    the ghost columns 0 and imt-1 stay what the blocks hold.  ``pad``:
+    the window's columns beyond imt (``padded_window``), which the last
+    rank of the x ring takes from the first rank's columns 0 .. pad-1
+    (whatever its block holds there), with the halo beyond them."""
+    nx = mesh.shape[1]
+    lx = f.shape[-1]
+    last = mesh.ix == nx - 1
+    send_e = f[..., lx - pad - w:lx - pad] if last else f[..., lx - w:]
+    send_w = f[..., :pad + w] if mesh.ix == 0 else f[..., :w]
+    if nx == 1:
+        wh, eh = send_e, send_w
+    else:
+        east, west = mesh.x_neighbours()
+        # the first rank's west-bound message carries the pad columns too
+        like_e = f[..., :pad + w] if last else f[..., :w]
+        wh, eh = mesh.exchange(
+            [(send_e, east, TAG_EAST), (send_w, west, TAG_WEST)],
+            [(f[..., :w], west, TAG_EAST), (like_e, east, TAG_WEST)])
+    body = f[..., :lx - pad] if last else f
+    f = torch.cat([wh, body, eh], dim=-1)
+    return _exchange_y(f, w, mesh)
+
+
+def pack_exchange_ring(fields: list, w: int, mesh, pad: int = 0) -> list:
+    """``pack_exchange`` through ``exchange_pad_ring``."""
+    packed, meta = pack(fields)
+    return unpack(exchange_pad_ring(packed, w, mesh, pad), meta)
 
 
 def crop(f, w: int):
@@ -234,9 +293,8 @@ def pad_zeros(f, w: int):
 
 def pad_window(f, jmt_p: int, imt_p: int):
     jmt, imt = f.shape[-2:]
-    m = imt - 2
     if imt_p > imt:
-        idx = torch.as_tensor([((g - 1) % m) + 1 for g in range(imt, imt_p)],
+        idx = torch.as_tensor(x_images(np.arange(imt, imt_p), imt),
                               device=f.device)
         f = torch.cat([f, torch.index_select(f, -1, idx)], dim=-1)
     if jmt_p > jmt:
@@ -246,6 +304,31 @@ def pad_window(f, jmt_p: int, imt_p: int):
 
 def crop_window(f, jmt: int, imt: int):
     return f[..., :jmt, :imt]
+
+
+class BlockCut:
+    """One rank's halo-padded block of a whole (..., jmt, imt) field, as
+    ``ExtendedStatics(..., ring=True)`` cuts a constant with zero fill:
+    for fields that every rank holds whole (the barotropic fields) and
+    that the step reads on its padded block.  The index tables are built
+    once."""
+
+    def __init__(self, jmt: int, imt: int, iy: int, ix: int, ly: int,
+                 lx: int, w: int, device):
+        rows = np.arange(iy * ly - w, (iy + 1) * ly + w)
+        self.rows = torch.as_tensor(np.clip(rows, 0, jmt - 1), device=device)
+        self.wall_rows = torch.as_tensor(
+            np.nonzero((rows < 0) | (rows >= jmt))[0], device=device)
+        self.cols = torch.as_tensor(
+            x_images(np.arange(ix * lx - w, (ix + 1) * lx + w), imt,
+                     ring=True),
+            device=device)
+
+    def __call__(self, a):
+        out = a.index_select(-2, self.rows).index_select(-1, self.cols)
+        if self.wall_rows.numel():
+            out[..., self.wall_rows, :] = 0.0
+        return out
 
 
 def pack(fields: list):

@@ -29,7 +29,8 @@ what each stage reads of the ocean changes:
 - ``ocean``: ``ShardedOceanStep.step(..., scan=True)``; the per-step
   means that read neighbours (the advective and diffusive fluxes, the
   face velocities) come from one more halo exchange of the new
-  temperature and velocity, psi from the replicated field;
+  temperature and velocity, the external-mode velocity from the
+  replicated field, as the unsharded stage forms it;
 - ``tail``: the bolus velocities from ``compute_isopyc`` on a
   halo-padded block; the convection extent on the block (column-local);
   the 2-D means replicated.
@@ -56,7 +57,7 @@ from ..coupler.driver import (CoupledModel, bolus_means, bottom_water,
 from ..models.ocean.kernels import adv_vel
 from ..models.ocean.model import make_forcing
 from ..ops.stencil import E
-from .halo import crop, pack_exchange
+from .halo import crop, pack_exchange_ring
 from .mesh import (REPLICATED, gather_coupled, gather_field,
                    gather_pytree, shard_coupled, shard_pytree)
 from .shard_step import ShardedOceanStep
@@ -74,12 +75,6 @@ class ShardedCoupledModel:
         self.ss = ss = ShardedOceanStep(model.ocean, mesh, halo=halo)
         self.jmt, self.imt = ss.jmt, ss.imt
         self._sed_kb = ss.local(model._sed_kb) if model._sed_on else None
-        # the padded block's column of the window's last column (imt-1):
-        # the global field's roll takes that column's east neighbour from
-        # column 0 (= column imt-2 after setbcx), not from the periodic
-        # image that the padded block holds there
-        c = self.imt - 1 - mesh.ix * ss.lx
-        self._last_col = c + ss.w if 0 <= c < ss.lx else None
         self.last_acc = None
         self.last_forcing = None
         self.last_tavg = None
@@ -163,21 +158,19 @@ class ShardedCoupledModel:
     def stage_ocean(self, ws, host, leapfrog):
         """One step on the block and its per-step means: those that read
         neighbours on the block padded by one exchange of the new
-        temperature, velocity and (replicated) streamfunction."""
+        temperature and velocity, with the external-mode velocity of the
+        replicated ``psi0`` (as ``CoupledModel.stage_ocean`` passes it to
+        ``full_velocity`` in every mode)."""
         m, ss = self.model, self.ss
         state = unpack_state(ws, host)
         forcing = make_forcing(**{k: ws["block/" + k]
                                   for k in m.forcing_names})
         oc = ss.step(state.ocean, forcing, leapfrog=leapfrog, scan=True)
         w, bag = ss.w, ss.bag
-        tT, ui, psi = pack_exchange([oc.t[0], oc.u, ss.local(oc.psi0)], w,
-                                    self.mesh, gx=ss.gx)
-        uf = ss.full_velocity(ui, psi)
-        vet, vnt, vbt, *_ = adv_vel(uf[0], uf[1], bag, True)
-        tE = E(tT)
-        if self._last_col is not None:
-            tE[..., self._last_col] = tT[..., self._last_col - 1]
-        tav = step_means(tT, tE, uf, vet, vnt, vbt, bag, bag.diff_cbt,
+        tT, ui = pack_exchange_ring([oc.t[0], oc.u], w, self.mesh, ss.pad)
+        uf = ss.full_velocity(ui, ss.ext_velocity(oc.psi0))
+        vet, vnt, vbt, *_ = adv_vel(uf[0], uf[1], bag, ss.bc)
+        tav = step_means(tT, E(tT), uf, vet, vnt, vbt, bag, bag.diff_cbt,
                          m.cfg.ocean.ah)
         return m.ocean_fields(ws, host, oc,
                               {k: crop(v, w) for k, v in tav.items()},
@@ -193,9 +186,9 @@ class ShardedCoupledModel:
         if cfg.isopycmix and cfg.gent_mcwilliams:
             from ..models.ocean.isopyc import compute_isopyc
             w, bag = ss.w, ss.bag
-            tp, = pack_exchange([t[:2]], w, self.mesh, gx=ss.gx)
+            tp, = pack_exchange_ring([t[:2]], w, self.mesh, ss.pad)
             iso = compute_isopyc(tp, bag.tmask, bag.kmt, om.eos_c, om.eos_to,
-                                 om.eos_so, bag, cfg, True,
+                                 om.eos_so, bag, cfg, ss.bc,
                                  addisop=bag.addisop)
             out.update({k: crop(v, w)
                         for k, v in bolus_means(iso, bag.diff_cbt).items()})

@@ -3,34 +3,39 @@
 Port of ``uvic_tpu.parallel.shard_step`` onto ``torch.distributed``.
 Each rank holds one block of the (y, x) mesh (``mesh.RankMesh``).  All
 stencil-consuming state is packed into a single array, halo-exchanged
-once per step (``halo.pack_exchange``), and the port's unchanged
-whole-domain functions (full velocities, ``adv_vel``, isopycnal/GM,
-tidal kv, the generic ``tracer_step``, ``clinic_step``) run on the
-halo-padded local block.  The halo covers the stencil composition depth
-(``required_halo``), so every kept cell computes the global answer; the
-frame computes garbage and is cropped.
+once per step (``halo.pack_exchange_ring``), and the port's unchanged
+whole-domain functions (full velocities, ``adv_vel``, the mixing
+coefficients, isopycnal/GM, tidal kv, the generic ``tracer_step``,
+``clinic_step``) run on the halo-padded local block.  The halo covers
+the stencil composition depth (``halo_width``), so every kept cell
+computes the global answer; the frame computes garbage and is cropped.
 
-The phases that the reference runs on the global array under GSPMD get
-the communication they need here:
+The step takes every option of ``OceanModel._step`` and computes it as
+``_step`` computes it; the reference runs them on the global array under
+GSPMD (``uvic_tpu.parallel.mesh.shard_step``), and its explicit sharded
+core refuses five of them.  The phases get the communication they need:
 
 - the sources (NPZD/MOBI, shortwave, geothermal heat) and convection
   (full, ncon, brine) are column-local: each rank runs them on its block
   (convection's region-mean apply, B3, on the card);
-- the high-latitude filters take whole rows: the filtered rows of a
-  block are gathered along its x ring, filtered, and each rank keeps
-  its own columns;
+- the high-latitude filters (FIR or Fourier) take whole rows: the
+  filtered rows of a block are gathered along its x ring, filtered, and
+  each rank keeps its own columns;
 - the ghost and image columns of the window are copied from the real
   columns they mirror (``setbcx`` and ``halo.pad_window`` on the global
-  array) by an exchange between the first and the last rank of each x
-  ring, and the rows beyond the wall are zeroed: before convection, as
-  ``tracer_step`` and ``clinic_step`` leave the global fields, and after
-  the filters;
+  array; zeroed at walls) by an exchange between the first and the last
+  rank of each x ring, and the rows beyond the wall are zeroed: before
+  convection, as ``tracer_step`` and ``clinic_step`` leave the global
+  fields, and after the filters;
 - the barotropic solve runs REPLICATED: the forcing ``zu`` is gathered
-  from every rank and ``tropic_step`` (its CG, B2, on the card) runs
-  identically everywhere, as the reference does (a sharded CG would
-  issue hundreds of latency-bound reductions, and the near-null modes
-  of the streamfunction operator amplify reduction-order differences).
-  psi0, psi1, ptd and ptdb stay replicated between steps.
+  from every rank and ``tropic_step`` or ``surface_pressure_step`` (the
+  CG, B2, on the card) runs identically everywhere on the whole field,
+  with the filter of the surface-pressure forcing on whole rows, as the
+  reference does (a sharded CG would issue hundreds of latency-bound
+  reductions, and the near-null modes of the operators amplify
+  reduction-order differences).  psi0, psi1, ptd, ptdb, ubar and ubarm1
+  stay replicated between steps, and the external-mode velocity is
+  computed on the whole field and cut to each rank's padded block.
 
 The core takes the generic ``tracer_step`` (never the fused tracer
 step, B1), as the reference's does: its fused Pallas step exists only
@@ -40,19 +45,22 @@ captured in a CUDA graph.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from ..checks import ConfigError
 from ..config import BarotropicMode, Convection
 from ..core.state import OceanState
 from ..models.ocean.kernels import adv_vel, clinic_step, tracer_step
 from ..models.ocean.model import eos_state_from
 from ..models.ocean.tropic import ext_mode_velocity, tropic_step
 from ..ops.convection import convct_brine, convct_full, convct_ncon
-from ..ops.stencil import setbcx
-from .halo import (BAG_AXES, ExtendedStatics, crop, pack, pack_exchange,
-                   pad_zeros, unpack)
-from .mesh import gather_field, local_block, padded_window
+from ..ops.stencil import BlockColumns, setbcx
+from .halo import (BAG_AXES, BlockCut, ExtendedStatics, crop, extend_x,
+                   extend_y, pack, pack_exchange_ring, pad_zeros, unpack,
+                   x_images)
+from .mesh import REPLICATED, gather_field, local_block, padded_window
 
 # message tags of the filters' row gathers and the column fix-up
 TAG_FILT_T, TAG_FILT_U, TAG_IMAGES, TAG_GHOST = 11, 12, 13, 14
@@ -61,30 +69,50 @@ TAG_FILT_T, TAG_FILT_U, TAG_IMAGES, TAG_GHOST = 11, 12, 13, 14
 class ShardedOceanStep:
     """Wraps an ``OceanModel`` with the rank-decomposed step.
 
-    Support matrix (the reference's ``ShardedOceanStep`` refuses the
-    same options; the port raises ``ConfigError`` naming them):
+    Support matrix: every option of ``OceanModel``, computed as its
+    ``_step`` computes it, with the communication each takes (beyond the
+    one packed halo exchange of t, tm1, u and um1 a step):
 
-    | concern            | supported               | refused           |
-    |--------------------|-------------------------|-------------------|
-    | barotropic         | streamfunction, 5-point | surface pressure, |
-    |                    | (acor)                  | free surface,     |
-    |                    |                         | 9-point           |
-    | vmix               | const / bryan_lewis     | ppmix             |
-    |                    | (+tidal_kv)             |                   |
-    | hmix               | const / aniso /         | smagnl            |
-    |                    | biharmonic              |                   |
-    | tracer advection   | centered/upstream/FCT   | quicker           |
-    | isopycnal/GM       | small-angle, full tensor|                   |
-    | domain             | cyclic                  | walls             |
-    | mixing step        | forward                 | Euler-backward    |
+    | concern            | options                  | communication      |
+    |--------------------|--------------------------|--------------------|
+    | barotropic         | streamfunction (5- or    | zu gathered, the   |
+    |                    | 9-point, acor), surface  | solve replicated;  |
+    |                    | pressure, implicit free  | the external-mode  |
+    |                    | surface                  | velocity cut from  |
+    |                    |                          | the whole field    |
+    | vmix               | const / bryan_lewis /    | none (ppmix on the |
+    |                    | ppmix (+tidal_kv)        | padded block)      |
+    | hmix               | const / aniso / smagnl / | none (padded       |
+    |                    | biharmonic, Neptune      | block)             |
+    | tracer advection   | centered / upstream /    | none (padded       |
+    |                    | FCT dlm1, dlm2, fct_3d / | block)             |
+    |                    | QUICKER                  |                    |
+    | isopycnal/GM       | small-angle, full tensor,| none (padded       |
+    |                    | dm_taper                 | block)             |
+    | sources            | bgc, shortwave, gthflx,  | none (column-local)|
+    |                    | dtxcel_deep              |                    |
+    | convection         | full, ncon, brine        | none (column-local)|
+    | filters            | FIR, Fourier             | rows gathered on   |
+    |                    |                          | the x ring         |
+    | domain             | cyclic, walls            | ghost and image    |
+    |                    |                          | columns: first and |
+    |                    |                          | last rank of a ring|
+    | mixing step        | forward, Euler-backward  | EB: two passes,    |
+    |                    |                          | each its exchange  |
+    |                    |                          | and solve          |
 
     ``halo=None`` derives the width from the configured stencil depth
-    (``required_halo``).  Polar bottom drag, Neptune, the full tensor and
-    brine convection are computed as ``OceanModel._step`` computes them
-    (the reference's sharded core leaves the first three out).
-    Euler-backward mixing and the 9-point operator, which the
-    reference's sharded step takes without a word but computes otherwise
-    than its ``_step``, are refused.
+    (``halo_width``).  The padded block holds what the whole field's
+    rolls read: its x images follow the ring of imt columns
+    (``halo.x_images(..., ring=True)``, ``halo.exchange_pad_ring``), on
+    which the ghost columns 0 and imt-1 are columns of their own, and
+    ``setbcx`` acts on the block's columns that stand for them as on
+    the whole field's (``ops.stencil.BlockColumns``: copied from the
+    columns they duplicate, or zeroed at walls).  So the step computes
+    what the whole field's step computes also where the state's ghost
+    columns are not the columns they duplicate (a state that no step
+    has made yet; the 9-point operator's psi).  The stored blocks keep
+    ``mesh.local_block``'s layout.
     """
 
     @staticmethod
@@ -103,7 +131,9 @@ class ShardedOceanStep:
           isopycnal slopes -> isoflux divergence     2  (when enabled)
           clinic grad_p/metric/diffusion             2
           biharmonic del^2 o del^2                   +2 (when enabled)
-        """
+
+        The reference's law; ``halo_width`` widens it for the options
+        its sharded core refuses."""
         w = 1 + 2 + 2 + 2          # velocity/adv_vel/flux/clinic chain
         if cfg.tracer_advection == "fct":
             w += 2                 # low-order solution pre-pass
@@ -113,42 +143,61 @@ class ShardedOceanStep:
             w += 2                 # second Laplacian pass
         return w
 
+    @staticmethod
+    def halo_width(cfg, cyclic: bool) -> int:
+        """The halo the step takes by default: ``required_halo`` widened
+        for what the reference's sharded core does not take:
+
+          a cyclic window: setbcx copies the column two     +2
+          to the west of column 0 (imt-2) and two to the
+          east of column imt-1 (1)
+          QUICKER: its flux reads two cells upstream        +1
+          Smagorinsky: strain -> face coefficients          +2
+          the 3-D FCT delimiter: a second limiter pass      +2
+
+        (ppmix's coefficients read two cells of the padded block and
+        enter the step column by column; the surface-pressure modes and
+        the 9-point operator take the external velocity cut from the
+        whole field; Euler-backward's second pass exchanges anew.)"""
+        w = ShardedOceanStep.required_halo(cfg)
+        if cyclic:
+            w += 2
+        if cfg.tracer_advection == "quicker":
+            w += 1
+        if cfg.hmix == "smagnl":
+            w += 2
+        if cfg.tracer_advection == "fct" and cfg.fct_3d:
+            w += 2
+        return w
+
     def __init__(self, model, mesh, halo: int | None = None):
         cfg = model.cfg.ocean
-        refused = [name for name, on in (
-            (f"barotropic={cfg.barotropic}",
-             cfg.barotropic != BarotropicMode.STREAM_FUNCTION),
-            ("vmix=ppmix", cfg.vmix == "ppmix"),
-            ("cyclic=False (walls)", not model.cyclic),
-            ("hmix=smagnl", cfg.hmix == "smagnl"),
-            ("tracer_advection=quicker", cfg.tracer_advection == "quicker"),
-            ("eb (Euler-backward mixing)", cfg.eb),
-            # the checkerboard deflation leaves psi's ghost columns other
-            # than the real columns they stand for, which the window's
-            # periodic images cannot reproduce
-            ("sf_npt=9", cfg.sf_npt == 9)) if on]
-        if refused:
-            raise ConfigError("the sharded ocean step does not take: "
-                              + ", ".join(refused))
         if halo is None:
-            halo = self.required_halo(cfg)
+            halo = self.halo_width(cfg, model.cyclic)
         self.m = model
         self.mesh = mesh
         g = model.params.grid
+        self.cyclic = bool(model.cyclic)
         self.ny, self.nx = mesh.shape
         self.w = w = halo
         # divisibility lift: pad the window to mesh multiples — x pad
-        # columns are periodic images, y pad rows lie beyond the wall
+        # columns are periodic images in the stored blocks, y pad rows
+        # lie beyond the wall; gx: the window's trailing ghost and image
+        # columns, pad: its columns beyond imt
         self.jmt, self.imt = g.jmt, g.imt
         self.jmt_p, self.imt_p = padded_window(g.jmt, g.imt, mesh.shape)
-        self.gx = 2 + (self.imt_p - g.imt)
+        self.pad = self.imt_p - g.imt
+        self.gx = 2 + self.pad
         self.ly, self.lx = ly, lx = (self.jmt_p // self.ny,
                                      self.imt_p // self.nx)
         if self.ny > 1 and halo > ly:
             raise ValueError(f"halo {halo} > local rows {ly}")
-        if self.nx > 1 and halo + self.gx > lx:
-            raise ValueError(f"halo {halo} + ghosts {self.gx} > local "
-                             f"cols {lx}")
+        if self.nx > 1 and (halo + self.pad > lx or self.gx > lx):
+            raise ValueError(f"halo {halo} + pad columns {self.pad} > "
+                             f"local cols {lx}")
+        # the window positions of this rank's padded block
+        x0 = mesh.ix * lx - w
+        pos = np.arange(x0, x0 + lx + 2 * w)
 
         # ---- extended static constants (one-time host work) ----------
         arrays = {k: getattr(model.g, k) for k in BAG_AXES
@@ -174,6 +223,8 @@ class ShardedOceanStep:
             "full_tensor_band": ("scalar",
                                  getattr(model.g, "full_tensor_band", None),
                                  None),
+            # the Smagorinsky metric term's sine
+            "sine": ("y", model.sine, "clamp"),
         }
         fills = {}
         for k, (kind, a, fill) in extra.items():
@@ -183,8 +234,18 @@ class ShardedOceanStep:
                 fills[k] = fill
         self.stat = ExtendedStatics(arrays, axes, g.jmt, g.imt, self.ny,
                                     self.nx, w, fills, jmt_p=self.jmt_p,
-                                    imt_p=self.imt_p)
+                                    imt_p=self.imt_p, ring=True)
         self.bag = self.stat.bag(mesh.iy, mesh.ix)
+        if hasattr(model.g, "quicker"):
+            self.bag.quicker = self._local_quicker(model.g.quicker, pos)
+        # the zonal boundary condition of the block's whole-domain calls
+        cols = x_images(pos, g.imt, ring=True)
+        self.bc = BlockColumns(np.nonzero(cols == 0)[0],
+                               np.nonzero(cols == g.imt - 1)[0], len(pos),
+                               self.cyclic)
+        # the padded block of a whole replicated field
+        self.cut = BlockCut(g.jmt, g.imt, mesh.iy, mesh.ix, ly, lx, w,
+                            model.device)
         # the rank's (ly, lx) block for the column-local phases
         self.tmask = crop(self.bag.tmask, w)
         self.umask = crop(self.bag.umask, w)
@@ -208,6 +269,24 @@ class ShardedOceanStep:
     def gather(self, a):
         """The global (..., jmt, imt) field of the ranks' blocks."""
         return gather_field(a, self.mesh, self.jmt, self.imt)
+
+    def _local_quicker(self, qc, pos):
+        """QUICKER's 1-D coefficients on the padded block: x at the
+        block's window positions, y extended beyond the walls as the
+        other y constants, z as they are."""
+        w, ly, iy = self.w, self.ly, self.mesh.iy
+
+        def ext(v, kind):
+            h = v.detach().cpu().numpy()
+            if kind == "x":
+                e = extend_x(h, w, n_out=self.imt_p, ring=True)
+                e = e[pos[0] + w:pos[-1] + w + 1]
+            else:
+                e = extend_y(h, w, n_out=self.jmt_p)[iy * ly:
+                                                     iy * ly + ly + 2 * w]
+            return torch.as_tensor(e, device=v.device)
+        return {ax: {k: (ext(v, ax) if ax in ("x", "y") else v)
+                     for k, v in d.items()} for ax, d in qc.items()}
 
     def _local_filter(self, filt):
         """(local row indices, their matrices) of a ``ZonalFilter``'s rows
@@ -241,17 +320,18 @@ class ShardedOceanStep:
 
     def _fix_columns(self, fields):
         """The window's ghost and image columns (positions 0 and imt-1 ..
-        imt_p-1) copied from the real columns they mirror, as
-        ``setbcx`` and ``pad_window`` give them on the global array, and
-        the rows beyond the wall zeroed; one exchange between the first
-        and the last rank of the x ring."""
+        imt_p-1) as ``setbcx`` and ``pad_window`` give them on the global
+        array — copied from the real columns they mirror, the ghost
+        columns zeroed at walls — and the rows beyond the wall zeroed;
+        one exchange between the first and the last rank of the x
+        ring."""
         packed, meta = pack(fields)
         imt, gx, lx, nx = self.imt, self.gx, self.lx, self.nx
+        mesh = self.mesh
         if nx == 1:
             packed[..., 0] = packed[..., imt - 2]
             packed[..., imt - 1:] = packed[..., 1:gx]
-        elif self.mesh.ix in (0, nx - 1):
-            mesh = self.mesh
+        elif mesh.ix in (0, nx - 1):
             first = mesh.rank_of(mesh.iy, 0)
             last = mesh.rank_of(mesh.iy, nx - 1)
             if mesh.ix == 0:
@@ -265,45 +345,66 @@ class ShardedOceanStep:
                                      [(packed[..., lx - gx + 1:], first,
                                        TAG_IMAGES)])
                 packed[..., lx - gx + 1:] = got
+        if not self.cyclic:
+            if mesh.ix == 0:
+                packed[..., 0] = 0.0
+            if mesh.ix == nx - 1:
+                packed[..., lx - gx + 1] = 0.0
         packed[..., self.wall_row:, :] = 0.0
         return unpack(packed, meta)
 
-    def full_velocity(self, ui, psi):
-        """Internal + external mode on the halo-padded block (``ui`` and
-        ``psi`` padded by the step's halo), masked; no ``setbcx``: the
-        padded block's periodic neighbours give the ghost columns the
-        values the global field's ``setbcx`` gives them."""
+    def ext_velocity(self, ext):
+        """The external-mode velocity (2, ly+2w, lx+2w) on this rank's
+        padded block, of the whole replicated ``ext`` (the streamfunction
+        or, in the surface-pressure modes, ubar), as
+        ``OceanModel.full_velocity`` forms it on the whole field, the
+        zonal boundary condition included: each rank computes it whole
+        and cuts its block, so the 9-point operator's ghost columns of
+        psi, which need not equal the columns they stand for, enter as
+        on the whole field."""
+        m = self.m
+        if m.sp_mode:
+            uext, vext = ext[0], ext[1]
+        else:
+            uext, vext = ext_mode_velocity(ext, m.g.hr, m.g.dxu2r,
+                                           m.g.dyu2r, m.g.csur)
+        shape = (self.jmt, self.imt)
+        ue = torch.stack([torch.broadcast_to(uext, shape),
+                          torch.broadcast_to(vext, shape)])
+        return self.cut(setbcx(ue, self.cyclic))
+
+    def full_velocity(self, ui, ue):
+        """Internal + external mode on the halo-padded block (``ui``
+        padded by the step's halo, ``ue`` from ``ext_velocity``),
+        masked, with the boundary columns of ``setbcx``."""
         bag = self.bag
-        uext, vext = ext_mode_velocity(psi, bag.hr, bag.dxu2r, bag.dyu2r,
-                                       bag.csur)
-        return torch.stack([(ui[0] + uext[None]) * bag.umask,
-                            (ui[1] + vext[None]) * bag.umask])
+        return setbcx(torch.stack([(ui[0] + ue[0][None]) * bag.umask,
+                                   (ui[1] + ue[1][None]) * bag.umask]),
+                      self.bc)
 
     # ------------------------------------------------------------------
     def _core(self, c2dtts, c2dtuv, t_tau, tm1, u_int, um1_int,
-              psi0, psi1, smf, stf, btf, source):
+              ue_tau, ue_tm1, smf, stf, btf, source):
         """Per-rank body: pad, run the whole-domain functions on the
         padded block, crop.  Returns (t_new before convection,
         u_int_new, zu) on the (ly, lx) block."""
-        m, w, bag = self.m, self.w, self.bag
+        m, w, bag, bc = self.m, self.w, self.bag, self.bc
         cfg = m.cfg.ocean
         tmask, umask = bag.tmask, bag.umask
         kmt, kmu = bag.kmt, bag.kmu
 
         # ONE exchange for everything the stencil cascade reads
-        t_tau, tm1, u_int, um1_int, psi0, psi1 = pack_exchange(
-            [t_tau, tm1, u_int, um1_int, self.local(psi0),
-             self.local(psi1)], w, self.mesh, gx=self.gx)
+        t_tau, tm1, u_int, um1_int = pack_exchange_ring(
+            [t_tau, tm1, u_int, um1_int], w, self.mesh, self.pad)
         smf = pad_zeros(smf, w)
         stf = pad_zeros(stf, w)
         btf = pad_zeros(btf, w)
         if source is not None:
             source = pad_zeros(source, w)
 
-        u_tau = self.full_velocity(u_int, psi0)
-        u_tm1 = self.full_velocity(um1_int, psi1)
-        vet, vnt, vbt, veu, vnu, vbu = adv_vel(u_tau[0], u_tau[1], bag,
-                                               True)
+        u_tau = self.full_velocity(u_int, ue_tau)
+        u_tm1 = self.full_velocity(um1_int, ue_tm1)
+        vet, vnt, vbt, veu, vnu, vbu = adv_vel(u_tau[0], u_tau[1], bag, bc)
 
         if cfg.cdbot != 0.0:
             kb = torch.clamp(kmu - 1, min=0).long()
@@ -314,14 +415,20 @@ class ShardedOceanStep:
         else:
             bmf = torch.zeros_like(smf)
 
-        diff_cbt, visc_cbu = bag.diff_cbt, bag.visc_cbu
+        if cfg.vmix == "ppmix":
+            from ..models.ocean.vmix import ppmix_coefficients
+            diff_cbt, visc_cbu = ppmix_coefficients(
+                tm1, u_tm1, tmask, umask, m.eos_c, m.eos_to, m.eos_so, bag,
+                cyclic=bc)
+        else:
+            diff_cbt, visc_cbu = bag.diff_cbt, bag.visc_cbu
         iso = None
         aidif = 0.0
         vet_t, vnt_t, vbt_t = vet, vnt, vbt
         if cfg.isopycmix:
             from ..models.ocean.isopyc import compute_isopyc
             iso = compute_isopyc(tm1, tmask, kmt, m.eos_c, m.eos_to,
-                                 m.eos_so, bag, cfg, True,
+                                 m.eos_so, bag, cfg, bc,
                                  addisop=bag.addisop)
             if cfg.tidal_kv:
                 from ..models.ocean.vmix import tidal_kv_diff
@@ -337,7 +444,15 @@ class ShardedOceanStep:
             aidif = cfg.aidif
 
         hmix_t = hmix_u = None
-        if cfg.hmix == "biharmonic":
+        if cfg.hmix == "smagnl":
+            from ..models.ocean.hmix import (smag_tracer_coefficients,
+                                             smagnl_coefficients)
+            strain, am_lam, am_phi = smagnl_coefficients(u_tm1, bag, bc)
+            cet, cnt = smag_tracer_coefficients(am_lam, am_phi,
+                                                cfg.smag_diff_back)
+            hmix_t = ("smagnl", cet, cnt)
+            hmix_u = ("smagnl", strain, am_lam, am_phi, bag.sine)
+        elif cfg.hmix == "biharmonic":
             hmix_t = ("biharmonic", cfg.ahbi)
             hmix_u = ("biharmonic", cfg.ambi)
         if m.aniso_visc is not None and hmix_u is None:
@@ -345,14 +460,14 @@ class ShardedOceanStep:
 
         t_new = tracer_step(
             t_tau, tm1, vet_t, vnt_t, vbt_t, stf, btf, source, diff_cbt,
-            kmt, tmask, bag, c2dtts, cfg.tracer_advection, aidif, True,
+            kmt, tmask, bag, c2dtts, cfg.tracer_advection, aidif, bc,
             iso=iso, hmix=hmix_t, fct_variant=cfg.fct_variant,
             fct3d=cfg.fct_3d)
 
         rho = eos_state_from(m.eos_c, m.eos_to, m.eos_so, t_tau)
         u_int_new, zu = clinic_step(
             u_tau, u_tm1, rho, veu, vnu, vbu, smf, bmf, visc_cbu, kmu,
-            umask, bag, c2dtuv, True, hmix=hmix_u, unep=bag.unep)
+            umask, bag, c2dtuv, bc, hmix=hmix_u, unep=bag.unep)
         return crop(t_new, w), crop(u_int_new, w), crop(zu, w)
 
     # ------------------------------------------------------------------
@@ -389,21 +504,67 @@ class ShardedOceanStep:
         """One step on this rank's block: ``state`` and ``forcing`` as
         ``mesh.shard_pytree`` cuts them (the barotropic fields
         replicated); every rank calls it together.  The counterpart of
-        ``OceanModel._step``; ``scan`` takes the bgc sources as
-        ``_step(..., scan=True)`` does (the leapfrog instance with the
-        step's interval, the coupled segment's ocean step)."""
+        ``OceanModel.step`` (a mixing step of an ``eb`` model is
+        Euler-backward: two passes) and, with ``scan``, of
+        ``OceanModel._step(..., scan=True)``: the bgc sources as
+        ``run_scan`` takes them (the leapfrog instance with the step's
+        interval, the coupled segment's ocean step) and a forward
+        mixing step, as the reference's ``run_scan``."""
+        if not leapfrog and not scan and self.m.cfg.ocean.eb:
+            return self._step_eb(state, forcing)
+        return self._step(state, forcing, leapfrog=leapfrog, scan=scan)
+
+    def _step_eb(self, state: OceanState, forcing) -> OceanState:
+        """Euler-backward mixing step as ``OceanModel._step_eb``: a
+        forward predictor pass whose tau+1 fields, exchanged anew, are
+        the tau arguments of a corrector pass."""
+        s1 = self._step(state, forcing, leapfrog=False, eb_pass=1)
+        if self.m.sp_mode:
+            mid = OceanState(
+                tm1=state.t, t=s1.t, um1=state.u, u=s1.u,
+                psi0=s1.psi0, psi1=s1.psi1, ptd=s1.ptd, ptdb=state.ptdb,
+                ubar=s1.ubar, ubarm1=s1.ubarm1, itt=state.itt,
+                nconv=s1.nconv)
+        else:
+            mid = OceanState(
+                tm1=state.t, t=s1.t, um1=state.u, u=s1.u,
+                psi0=s1.psi0, psi1=state.psi0, ptd=state.ptd,
+                ptdb=state.ptdb, ubar=state.ubar, ubarm1=state.ubarm1,
+                itt=state.itt, nconv=s1.nconv)
+        s2 = self._step(mid, forcing, leapfrog=False, eb_pass=2)
+        return dataclasses.replace(s2, tm1=state.t, um1=state.u,
+                                   itt=state.itt + 1)
+
+    def _step(self, state: OceanState, forcing, *, leapfrog: bool,
+              scan: bool = False, eb_pass: int = 0) -> OceanState:
+        """``OceanModel._step`` on the block (``eb_pass`` 1/2: the passes
+        of an Euler-backward mixing step, taken with ``leapfrog``
+        False)."""
         m = self.m
         cfg = m.cfg.ocean
-        if leapfrog:
+        if eb_pass == 2:
+            c2dtts, c2dtuv, c2dtsf = cfg.dtts, cfg.dtuv, cfg.dtsf
+            tm1, t_tau = state.tm1, state.t
+            um1_int, u_int = state.um1, state.u
+            psi0, psi1 = state.psi0, state.psi1
+            ub_tm1 = state.ubarm1
+        elif leapfrog:
             c2dtts, c2dtuv, c2dtsf = 2 * cfg.dtts, 2 * cfg.dtuv, 2 * cfg.dtsf
             tm1, t_tau = state.tm1, state.t
             um1_int, u_int = state.um1, state.u
             psi0, psi1 = state.psi0, state.psi1
+            ub_tm1 = state.ubarm1
         else:
             c2dtts, c2dtuv, c2dtsf = cfg.dtts, cfg.dtuv, cfg.dtsf
             tm1, t_tau = state.t, state.t
             um1_int, u_int = state.u, state.u
             psi0, psi1 = state.psi0, state.psi0
+            ub_tm1 = state.ubar
+        ext_tau, ext_tm1 = ((state.ubar, ub_tm1) if m.sp_mode
+                            else (psi0, psi1))
+        ue_tau = self.ext_velocity(ext_tau)
+        ue_tm1 = ue_tau if ext_tm1 is ext_tau \
+            else self.ext_velocity(ext_tm1)
 
         smf = forcing.smf * self.umask[0][None]
         stf = forcing.stf * self.tmask[0][None]
@@ -413,8 +574,8 @@ class ShardedOceanStep:
         source = self._sources(tm1, forcing, leapfrog, scan, c2dtts)
 
         t_new, u_int_new, zu = self._core(
-            c2dtts, c2dtuv, t_tau, tm1, u_int, um1_int, psi0, psi1, smf,
-            stf, btf, source)
+            c2dtts, c2dtuv, t_tau, tm1, u_int, um1_int, ue_tau, ue_tm1,
+            smf, stf, btf, source)
 
         # the ghost columns the global field has here (tracer_step's and
         # clinic_step's setbcx), then column-local convection on the block
@@ -438,12 +599,35 @@ class ShardedOceanStep:
 
         # the barotropic solve, replicated: zu from every rank, with the
         # ghost columns clinic_step's setbcx gives the global field
-        zu = setbcx(self.gather(zu), True)
+        zu = setbcx(self.gather(zu), self.cyclic)
         solver, solve_c2dtsf = m.barotropic_solver(leapfrog)
+        if m.sp_mode:
+            from ..models.ocean.surfpress import surface_pressure_step
+            alph, gam_b, theta = m.sp_consts
+            fs = m.barotropic == BarotropicMode.IMPLICIT_FREE_SURFACE
+            if m.filt_zu is not None:
+                zu = m.filt_zu(zu)
+            ps0n, ps1n, pguess, ubar_n, iters = surface_pressure_step(
+                zu, state.psi0, state.psi1, psi1, state.ptd, state.ubar,
+                ub_tm1, solver, m.g, m.umask[0], m.sp_omask, c2dtsf,
+                cfg.dtsf, cfg.tolrfs if fs else cfg.tolrsp, leapfrog,
+                free_surface=fs, alph=alph, gam=gam_b, theta=theta,
+                acor=cfg.acor, cori=m.g.cori[0], eb_pass=eb_pass,
+                cyclic=m.cyclic)
+            self.last_cg_iters = iters
+            return OceanState(
+                tm1=t_tau, t=t_new, um1=u_int, u=u_int_new,
+                psi0=ps0n, psi1=ps1n, ptd=pguess, ptdb=state.ptdb,
+                ubar=ubar_n,
+                ubarm1=state.ubarm1 if eb_pass == 2 else state.ubar,
+                itt=state.itt + 1,
+                nconv=state.nconv + (iters >= cfg.mxscan).to(torch.int32))
         psi0n, psi1n, ptd, ptdb, iters, conv = tropic_step(
             zu, psi0, psi1, state.ptd, state.ptdb, m.isl, m.g.dxu, m.g.dyu,
-            m.g.csu, c2dtsf, cfg.tolrsf, cfg.mxscan, leapfrog, solver, True,
-            filt=m.filt_sf, npt=cfg.sf_npt, solve_c2dtsf=solve_c2dtsf)
+            m.g.csu, c2dtsf, cfg.tolrsf, cfg.mxscan, leapfrog, solver,
+            m.cyclic, filt=m.filt_sf, euler2=eb_pass == 2,
+            save_ptd=eb_pass != 1, npt=cfg.sf_npt,
+            solve_c2dtsf=solve_c2dtsf)
         self.last_cg_iters = iters
         return OceanState(
             tm1=t_tau, t=t_new, um1=u_int, u=u_int_new,
@@ -462,8 +646,8 @@ def run_sharded(mesh, cfg, state, forcing, schedule, halo=None, root=0):
     leapfrog step) and gather.
 
     Returns a dict: ``state`` (the global NumPy fields on ``root``, None
-    elsewhere), ``barotropic`` (this rank's replicated psi0, psi1, ptd,
-    ptdb), ``blocks`` (this rank's blocks of t and u, ghost and image
+    elsewhere), ``barotropic`` (this rank's replicated fields, ``mesh.
+    REPLICATED``), ``blocks`` (this rank's blocks of t and u, ghost and image
     columns included), ``step_s`` (wall seconds of each step, the card synchronised),
     ``exchange_s`` (seconds of each step in messages; the first step's
     include the wait for the slowest rank's start), ``messages``,
@@ -515,8 +699,7 @@ def run_sharded(mesh, cfg, state, forcing, schedule, halo=None, root=0):
     full = gather_pytree(s, mesh, jmt, imt, root=root)
     return dict(
         state=None if full is None else ocean_state_to_numpy(full),
-        barotropic={k: getattr(s, k).cpu().numpy()
-                    for k in ("psi0", "psi1", "ptd", "ptdb")},
+        barotropic={k: getattr(s, k).cpu().numpy() for k in REPLICATED},
         blocks={k: getattr(s, k).cpu().numpy() for k in ("t", "u")},
         step_s=step_s, exchange_s=exchange_s, messages=messages,
         transport=mesh.transport, launches=launches, cg_iters=iters)
