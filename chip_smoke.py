@@ -6,6 +6,7 @@ card.
     python3 chip_smoke.py                  # the whole check, below
     python3 chip_smoke.py --times          # kernel times only, one JSON line
     python3 chip_smoke.py --golden-years N # N earth years against the golden
+    python3 chip_smoke.py --precision-year DIR  # the float32 year, into DIR
     python3 chip_smoke.py --golden-gaps TSI_CSV  # a run's tsi, by year
 
 Phases (each failure ends the run with a non-zero exit code):
@@ -265,6 +266,17 @@ Phases (each failure ends the run with a non-zero exit code):
    streamfunction's or the free surface's, its last step's inputs)
    against their plain versions; rank 0's step and message times.  A
    failing or hung rank (SHARDED_TIMEOUT_S) fails the phase.
+14. The repo's precision and closure tools on the card: the precision
+   study (``uvic_tpu_torch.precision_study``: the 34x40x8 isopycnal/GM
+   ocean, STUDY_STEPS leapfrog steps, physics and full MOBI), float32 on
+   the card (the leapfrog steps replayed) against float64 on the CPU
+   (computed by two worker processes started after phase 1), each drift
+   key of each row held to PRECISION_FACTOR x the JAX package's float32
+   figure for it (PRECISION_STUDY_JAX); then ``probes.segment_closure``
+   on phase 6's earth model from EARTH_RESTART: one segment phase by
+   phase with its forcing in hand and the replayed segment, each one's
+   ocean heat closure held to the probe's float32 limit
+   (``RESID_LIMIT_WM2``).
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
@@ -311,6 +323,15 @@ by GOLDEN_YEAR_S a year.  With --golden-gaps TSI_CSV it prints the same
 table for a tsi stream another run wrote from EARTH_RESTART (no card
 needed: the JAX package's ``scripts/run_production.py --earth
 --from-restart earth_accept/restart.npz`` in float32, for one).
+
+With --precision-year DIR the script builds the kernels and runs the
+float32 year of ``uvic_tpu_torch.precision_year`` (73 replayed segments
+of ``earth_config()`` from ``init_state()``) on the card, writes its
+stream and its divergence from PRECISION_F64 (the JAX package's float64
+year) into DIR as ``tsi_year_f32_h100.json`` and
+``divergence_h100.json``, and exits 1 when a key's max_rel exceeds
+PRECISION_FACTOR x the JAX package's float32 max_rel of
+PRECISION_JAX_DIVERGENCE; its watchdog is PRECISION_YEAR_S.
 """
 
 import dataclasses
@@ -600,6 +621,47 @@ TOL_SHARDED_OPTIONS = 0.0
 # within TOL_SHARDED_EARTH of each field's largest magnitude: the same
 # arithmetic on each cell, the 2-D components replicated.
 TOL_SHARDED_EARTH = 0.0
+# The precision tools (phase 14, --precision-year).  The JAX package's
+# float32 drift from float64 of scripts/precision_study.py, by row (step)
+# and key, as ``python3 scripts/precision_study.py 40 [--mobi]`` printed
+# it on one CPU (JAX 0.9.0; both dtypes on the CPU); the card's float32
+# against the CPU's float64 is held to PRECISION_FACTOR x each figure
+# (the golden limits' rule, golden/regression/spinup_earth_year.json).
+STUDY_STEPS = 40
+PRECISION_FACTOR = 5.0
+_STUDY_PHYSICS = {
+    10: dict(temp_max_err=7.084623430131387e-06,
+             temp_rel=3.915154556842178e-07, salt_max_err=0.0,
+             u_rel=4.7082876273621155e-06, psi_rel=7.901522887551306e-06),
+    20: dict(temp_max_err=1.4309315879756923e-05,
+             temp_rel=7.908254262108267e-07, salt_max_err=0.0,
+             u_rel=7.379175860786101e-06, psi_rel=7.236774014812587e-06),
+    40: dict(temp_max_err=3.191840118432765e-05,
+             temp_rel=1.7642563852380335e-06, salt_max_err=0.0,
+             u_rel=2.190020277640082e-05, psi_rel=8.455407182830116e-06)}
+PRECISION_STUDY_JAX = {
+    False: _STUDY_PHYSICS,
+    True: {
+        10: dict(_STUDY_PHYSICS[10], dic_rel=9.093562490140788e-07,
+                 o2_rel=4.6715195748105116e-06, po4_rel=6.19019707453427e-06,
+                 no3_rel=9.729841682722811e-06),
+        20: dict(_STUDY_PHYSICS[20], dic_rel=1.6294989130774694e-06,
+                 o2_rel=6.919698837975904e-06, po4_rel=7.79151933339087e-06,
+                 no3_rel=1.2432878893657705e-05),
+        40: dict(_STUDY_PHYSICS[40], dic_rel=2.627772693564266e-06,
+                 o2_rel=9.45175879842734e-06, po4_rel=5.573025596407381e-06,
+                 no3_rel=9.019466253947543e-06)}}
+STUDY_WORKER_THREADS = 2
+STUDY_WORKER_TIMEOUT_S = 300
+# --precision-year: the JAX package's float64 year as it computes it now
+# (``scripts/precision_year.py run float64``; golden/precision/
+# tsi_year_f64.json predates the earth configuration's last changes and
+# sits 2.7e-3 from it in sat_gm at the first segment), and the limits'
+# float32 divergence
+PRECISION_F64 = "golden/precision_torch/tsi_year_f64_jax.json"
+PRECISION_F64_OLD = "golden/precision/tsi_year_f64.json"
+PRECISION_JAX_DIVERGENCE = "golden/precision/divergence.json"
+PRECISION_YEAR_S = 900
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -3776,6 +3838,132 @@ def sharded_option_check(name, o, ranks):
     return out
 
 
+def start_study_references():
+    """Two worker processes computing phase 14's float64 CPU side (the
+    precision study's snapshots, physics and MOBI) while the card runs
+    the earlier phases.  Returns (the pool, {mobi: async result})."""
+    import multiprocessing
+
+    import torch
+    from uvic_tpu_torch.precision_study import snapshots
+    pool = multiprocessing.get_context("spawn").Pool(
+        2, initializer=torch.set_num_threads,
+        initargs=(STUDY_WORKER_THREADS,))
+    refs = {mobi: pool.apply_async(snapshots, ("float64", STUDY_STEPS, mobi,
+                                               "cpu"))
+            for mobi in (False, True)}
+    return pool, refs
+
+
+def precision_phase(earth, pool, refs):
+    """Phase 14: the precision study, float32 on the card against the
+    workers' float64 on the CPU, and the segment closure probe on phase
+    6's earth model."""
+    import torch
+    from uvic_tpu_torch import precision_study
+    from uvic_tpu_torch.models.ocean.graphs import KERNEL_WRAPPERS
+    from uvic_tpu_torch.probes import segment_closure
+    out, bad = {}, []
+    for mobi in (False, True):
+        label = "MOBI" if mobi else "physics"
+        before = {k: w.launches for k, w in KERNEL_WRAPPERS.items()}
+        t0 = time.perf_counter()
+        m32, snap32 = precision_study.run("float32", STUDY_STEPS, mobi,
+                                          "cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {k: w.launches - before[k]
+                    for k, w in KERNEL_WRAPPERS.items()}
+        t0 = time.perf_counter()
+        snap64 = refs[mobi].get(timeout=STUDY_WORKER_TIMEOUT_S)
+        wait_s = time.perf_counter() - t0
+        rows = precision_study.drift_rows(m32, snap64, snap32, mobi)
+        say(f"  precision study, {label}: {STUDY_STEPS} steps float32 on the "
+            f"card {card_s:.1f} s (launches outside the graphs and in their "
+            f"captures {json.dumps(launches)}), float64 from the CPU worker "
+            f"(waited {wait_s:.1f} s)")
+        for row in rows:
+            jax = PRECISION_STUDY_JAX[mobi][row["step"]]
+            for key, v in row.items():
+                if key == "step":
+                    continue
+                lim = PRECISION_FACTOR * jax[key]
+                say(f"    step {row['step']:2d} {key:13s} {v:.3e} (JAX float32 "
+                    f"{jax[key]:.3e}, limit {lim:.3e})")
+                if not v <= lim:
+                    bad.append((label, row["step"], key, v, lim))
+        out[label] = dict(rows=rows, card_s=card_s, launches=launches)
+        if min(launches.values()) < 1:
+            bad.append((label, "a kernel did not launch", launches))
+    pool.close()
+    pool.join()
+
+    em, estart = earth["model"], earth["start"]
+    t0 = time.perf_counter()
+    manual, replay, after = segment_closure.closure_rows(em, estart)
+    closure_s = time.perf_counter() - t0
+    check_finite(after.ocean, "the replayed closure segment")
+    replay_resid = (replay["fused_d_heat_wm2"] - replay["fused_acc_heat_wm2"]
+                    - manual["bhf_wm2"])
+    lim = segment_closure.RESID_LIMIT_WM2
+    say(f"  segment closure on {EARTH_RESTART} ({closure_s:.1f} s): "
+        f"{json.dumps(manual)} {json.dumps(replay)}; the replayed segment's "
+        f"residual {replay_resid:.3f} W/m^2; limit {lim} W/m^2")
+    for what, r in (("manual", manual["resid_wm2"]),
+                    ("replayed", replay_resid)):
+        if not abs(r) <= lim:
+            bad.append(("segment closure", what, r, lim))
+    out["closure"] = dict(manual=manual, replay=replay,
+                          replay_resid_wm2=replay_resid)
+    if bad:
+        raise AssertionError(f"precision tools out of limits: {bad}")
+    return out
+
+
+def precision_year_mode(outdir):
+    """--precision-year: the float32 year on the card, its stream and its
+    divergence from PRECISION_F64 into ``outdir``."""
+    import torch
+    from uvic_tpu_torch import precision_year
+    from uvic_tpu_torch.cuda import LIBRARY
+    LIBRARY.get()
+    os.makedirs(outdir, exist_ok=True)
+    stream = os.path.join(outdir, "tsi_year_f32_h100.json")
+    t0 = time.perf_counter()
+    precision_year.run("float32", stream, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def load(path):
+        with open(path) as f:
+            return json.load(f)
+
+    card = load(stream)
+    div = precision_year.divergence(card, load(PRECISION_F64))
+    jax32 = load(PRECISION_JAX_DIVERGENCE)["divergence"]
+    old = precision_year.divergence(card, load(PRECISION_F64_OLD))
+    limits = {k: PRECISION_FACTOR * jax32[k]["max_rel"] for k in jax32}
+    out_of = {k: d["max_rel"] for k, d in div["divergence"].items()
+              if not d["max_rel"] <= limits[k]}
+    res = dict(div, reference=PRECISION_F64, limits_max_rel=limits,
+               limit_rule=f"{PRECISION_FACTOR:g} x the JAX package's float32 "
+               f"max_rel of {PRECISION_JAX_DIVERGENCE}",
+               card=card_line(), wall_s=wall,
+               against_old_golden={k: d["max_rel"] for k, d in
+                                   old["divergence"].items()},
+               out_of_limits=out_of)
+    with open(os.path.join(outdir, "divergence_h100.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    for k, d in div["divergence"].items():
+        say(f"  {k:8s} max_rel {d['max_rel']:.3e} (limit {limits[k]:.3e}), "
+            f"final_rel {d['final_rel']:.3e}; against {PRECISION_F64_OLD} "
+            f"{old['divergence'][k]['max_rel']:.3e}")
+    say(f"  {div['segments']} segments in {wall:.1f} s "
+        f"({86400.0 / wall:.0f} simulated years a day)")
+    say(json.dumps(res))
+    return 1 if out_of else 0
+
+
 PHASE_CLOCK = []     # (number, start) of the phase that runs
 PHASE_S = {}         # seconds of each finished phase, by number
 
@@ -3818,6 +4006,12 @@ def main(argv):
         say(card)
         faulthandler.cancel_dump_traceback_later()
         return code
+    if len(argv) == 2 and argv[0] == "--precision-year":
+        faulthandler.dump_traceback_later(PRECISION_YEAR_S, exit=True)
+        code = precision_year_mode(argv[1])
+        say(card)
+        faulthandler.cancel_dump_traceback_later()
+        return code
     if argv:
         say(f"unknown arguments {argv}")
         return 2
@@ -3842,6 +4036,7 @@ def main(argv):
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and int(spill.group(1)) > 0:
             raise AssertionError("a kernel spills: " + line.strip())
+    study_pool, study_refs = start_study_references()
 
     phase("phase 2: kernels against their plain versions, flagship shapes")
     m, state, forcing, seen = flagship_inputs()
@@ -4027,6 +4222,11 @@ def main(argv):
           "against the unsharded steps and segment")
     shard = sharded_phase(m, state, forcing)
 
+    phase(f"phase 14: the precision study ({STUDY_STEPS} steps, physics and "
+          "MOBI, float32 on the card against float64 on the CPU) and the "
+          "segment closure probe")
+    prec = precision_phase(earth, study_pool, study_refs)
+
     by_path = {k: {"nt2_eager": launches[k],
                    "nt2_run_scan_per_step": captured2[k],
                    "nt41_eager": eager41[k],
@@ -4059,7 +4259,10 @@ def main(argv):
                        [c[k] for c in shard["earth"]["launches"]],
                    "sharded_options_per_step": {
                        name: [c[k] / r["passes"] for c in r["launches"]]
-                       for name, r in shard["options"].items()}}
+                       for name, r in shard["options"].items()},
+                   "precision_study_eager_and_captured": {
+                       label: prec[label]["launches"][k]
+                       for label in ("physics", "MOBI")}}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -4178,7 +4381,10 @@ def main(argv):
         f"messages, sharded option models' leapfrog steps "
         + ", ".join(f"{name} {r['timing']['step_ms'][-1]:.1f} ms"
                     for name, r in shard["options"].items())
-        + f" ({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one card)")
+        + f" ({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one card); "
+        f"precision study on the card {prec['physics']['card_s']:.1f} s "
+        f"(physics) and {prec['MOBI']['card_s']:.1f} s (MOBI), segment "
+        f"closure residual {prec['closure']['manual']['resid_wm2']} W/m^2")
     phase(None)
     say("phase seconds: " + json.dumps(
         {n: round(t, 1) for n, t in PHASE_S.items()}))

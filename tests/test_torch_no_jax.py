@@ -25,6 +25,7 @@ REFERENCE = re.compile(r"\buvic_tpu(?!_torch)\b\s*(\.|import\b)")
 IMPORT_JAX = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b", re.M)
 IMPORT_REF = re.compile(
     r"^\s*(from\s+uvic_tpu(?!_torch)\b|import\s+uvic_tpu(?!_torch)\b)", re.M)
+IMPORT_SCRIPTS = re.compile(r"^\s*(from|import)\s+scripts\b", re.M)
 
 BLOCKED_IMPORT = """
 import importlib, sys
@@ -53,7 +54,14 @@ def test_every_module_imports_without_jax():
             "uvic_tpu_torch.models.ocean.neptune",
             "uvic_tpu_torch.models.ocean.surfpress",
             "uvic_tpu_torch.parallel.shard_step",
-            "uvic_tpu_torch.parallel.shard_segment"} <= set(MODULES)
+            "uvic_tpu_torch.parallel.shard_segment",
+            "uvic_tpu_torch.precision_year",
+            "uvic_tpu_torch.precision_study", "uvic_tpu_torch.run_earth",
+            "uvic_tpu_torch.tune_earth", "uvic_tpu_torch.diag.climate",
+            *(f"uvic_tpu_torch.probes.{name}" for name in (
+                "year_closure", "segment_closure", "replay_vs_manual",
+                "energy", "toa_decompose", "closure", "moc", "triage"))
+            } <= set(MODULES)
     out = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, *MODULES], cwd=ROOT,
         capture_output=True, text=True, timeout=300)
@@ -67,6 +75,7 @@ def test_sources_import_neither_jax_nor_the_reference(path):
     text = path.read_text()
     assert not IMPORT_JAX.search(text), f"{path}: imports jax"
     assert not IMPORT_REF.search(text), f"{path}: imports uvic_tpu"
+    assert not IMPORT_SCRIPTS.search(text), f"{path}: imports scripts/"
     # no dynamic import of the reference either
     for line in text.splitlines():
         if "import_module" in line or "__import__" in line:

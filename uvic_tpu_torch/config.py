@@ -329,3 +329,20 @@ def earth_config(dtype: str = "float32", accel: float = 1.0,
             athkdf=1.2e7, cdbot_polar_scale=20.0),
         embm=_replace(cfg.embm, seasonal=True),
         land=_replace(cfg.land, enabled=True))
+
+
+def tools_earth_config(dtype: str = "float32", land: bool = True
+                       ) -> ModelConfig:
+    """The earth model of the repo's acceptance and analysis tools
+    (``run_earth``, ``tune_earth``, ``probes``; ``scripts/run_earth.py:
+    31-39``): the physics of ``earth_config`` without its GM thickness
+    diffusivity and polar bottom drag, the land model on unless ``land``
+    is False (``scripts/probe_closure.py:33-38``)."""
+    cfg = ModelConfig(dtype=dtype)
+    return cfg.replace(
+        ocean=_replace(
+            cfg.ocean, isopycmix=True, gent_mcwilliams=True,
+            tidal_kv=True, gthflx=True, aniso_visc=True,
+            aniso_zonal=True),
+        embm=_replace(cfg.embm, seasonal=True),
+        land=_replace(cfg.land, enabled=land))

@@ -1081,8 +1081,10 @@ class CoupledModel:
         return run_stages(self, state)
 
     def run(self, state: CoupledState, nseg: int,
-            eager: bool = False) -> CoupledState:
-        """``nseg`` segments, ``relyr`` advancing by a segment each, the
+            eager: bool = False, yrlen: float | None = None) -> CoupledState:
+        """``nseg`` segments, ``relyr`` advancing by a segment each (of a
+        year of ``yrlen`` days, by default the calendar's: the repo's
+        precision and probe tools count 365), the
         transient forcing (when set) taken at each segment's year.  On
         the card each stage is the replay of its captured CUDA graph
         (``graphs.SegmentGraphs``, captured at the first call and again
@@ -1090,7 +1092,8 @@ class CoupledModel:
         raises); on the CPU, or with ``eager``, the segments run eagerly
         (``run_segment``)."""
         seg_days = self.cfg.time.segtim_days
-        yrlen = 360.0 if self.cfg.time.eqyear else 365.0
+        if yrlen is None:
+            yrlen = 360.0 if self.cfg.time.eqyear else 365.0
         for _ in range(nseg):
             if self.transient is not None:
                 self._update_transient()

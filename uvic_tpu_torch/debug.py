@@ -70,18 +70,21 @@ def _check(tag, tree, log):
     return False
 
 
-def bisect_segment(model, state, max_substeps=None) -> dict:
-    """Replay one segment phase by phase; return the first phase that
-    produces a non-finite value (or ok=True).  ``model`` is a
-    CoupledModel; ``state`` the CoupledState entering the segment,
-    which is left as it is (the replay runs on a copy)."""
+def segment_phases(model, state, max_substeps=None):
+    """Replay the core of one segment eagerly with the public API, as the
+    reference's tools do by hand (``scripts/probe_segment_closure.py:
+    55-83``): the atmosphere/ice substeps, gosbc's forcing and the ocean
+    steps (``OceanModel.step``).  Yields, in order, ``("atm_ice", s, atm,
+    ice, acc_s)`` after each substep (``acc_s`` its own fluxes),
+    ``("gosbc", forcing, acc)`` with the segment's flux totals, and
+    ``("ocean", s, ocean)`` after each ocean step.  ``state`` is left as
+    it is (the replay runs on a copy); ``model.relyr`` is not advanced."""
     from .coupler.driver import host_of, pack_state, unpack_state
     from .models.embm.insolation import daily_insolation
 
     state = unpack_state({k: v.clone() for k, v in pack_state(state).items()},
                          host_of(state))
     cfg = model.cfg
-    log = []
     sst, _, frzpt = model.gasbc(state)
     u_surf = model.ocean.full_velocity(state.ocean.u, state.ocean.psi0)
     uocn, vocn = u_surf[0, 0], u_surf[1, 0]
@@ -108,21 +111,39 @@ def bisect_segment(model, state, max_substeps=None) -> dict:
             atm, ice, sst, frzpt, uocn, vocn, anthro, solins, land_gc,
             mixing=mixing)
         acc = a if acc is None else {k: acc[k] + a[k] for k in acc}
-        if _check(f"atm_ice[{s}]", (atm, ice), log):
-            return dict(ok=False, phase=f"atm_ice substep {s}",
-                        detail=log)
+        yield "atm_ice", s, atm, ice, a
 
     st2 = dataclasses.replace(state, atm=atm, ice=ice)
     swr_mean = acc["swr"] / acc["time"]
     forcing = model.gosbc(acc, st2, swr_mean, relyr=model.relyr)
-    if _check("gosbc_forcing", (forcing.stf, forcing.smf), log):
-        return dict(ok=False, phase="gosbc forcing", detail=log)
+    yield "gosbc", forcing, acc
 
     ocean = state.ocean
     for s in range(model.ntspos):
         lf = ocean.itt % cfg.ocean.nmix != 0
         ocean = model.ocean.step(ocean, forcing, leapfrog=lf)
-        if _check(f"ocean[{s}]", (ocean.t, ocean.u, ocean.psi0), log):
-            return dict(ok=False, phase=f"ocean substep {s}",
-                        detail=log)
+        yield "ocean", s, ocean
+
+
+def bisect_segment(model, state, max_substeps=None) -> dict:
+    """Replay one segment phase by phase (``segment_phases``); return the
+    first phase that produces a non-finite value (or ok=True).  ``model``
+    is a CoupledModel; ``state`` the CoupledState entering the segment,
+    which is left as it is."""
+    log = []
+    for phase in segment_phases(model, state, max_substeps):
+        if phase[0] == "atm_ice":
+            _, s, atm, ice, _ = phase
+            if _check(f"atm_ice[{s}]", (atm, ice), log):
+                return dict(ok=False, phase=f"atm_ice substep {s}",
+                            detail=log)
+        elif phase[0] == "gosbc":
+            forcing = phase[1]
+            if _check("gosbc_forcing", (forcing.stf, forcing.smf), log):
+                return dict(ok=False, phase="gosbc forcing", detail=log)
+        else:
+            _, s, ocean = phase
+            if _check(f"ocean[{s}]", (ocean.t, ocean.u, ocean.psi0), log):
+                return dict(ok=False, phase=f"ocean substep {s}",
+                            detail=log)
     return dict(ok=True, phase=None, detail=[])

@@ -764,9 +764,10 @@ class OceanModel:
         return state
 
     def run_scan(self, state: OceanState, forcing: SurfaceForcing,
-                 nsteps: int) -> OceanState:
-        """Run ``nsteps`` with ``cfg.ocean.nmix``'s cadence and the
-        reference ``run_scan``'s step (``_step(..., scan=True)``).
+                 nsteps: int, nmix: int | None = None) -> OceanState:
+        """Run ``nsteps`` with ``nmix``'s cadence (by default
+        ``cfg.ocean.nmix``'s) and the reference ``run_scan``'s step
+        (``_step(..., scan=True)``).
 
         On the card each step is the replay of one of two CUDA graphs,
         a leapfrog step and a mixing step, captured at the first call
@@ -776,7 +777,7 @@ class OceanModel:
         ``scan_cg_iters`` holds each step's CG iterations (int32 on the
         model's device).
         """
-        nmix = self.cfg.ocean.nmix
+        nmix = nmix or self.cfg.ocean.nmix
         iters = torch.zeros(nsteps, dtype=torch.int32, device=self.device)
         if self.device.type == "cpu":
             for n in range(nsteps):

@@ -34,6 +34,8 @@ import time
 import numpy as np
 import torch
 
+from .diag import climate
+
 FLICE = 3.34e9        # latent heat of fusion [erg/g], the audit's ice term
 ICE_SAMPLE_EVERY = 6  # segments between two sea-ice area samples
 ACC_KEYS = ("toa_sw", "olr", "heat", "time")
@@ -80,9 +82,8 @@ def yearly_diags(m, state, acc_sum, v_ann, psi_ann, ice_samples, area,
     g = m.ocean.g
     sst = state.ocean.t[0, 0].detach().cpu().numpy()
     sat = state.atm.at[0].detach().cpu().numpy()
-    tsec = acc_sum["time"]
-    toa2d = (acc_sum["toa_sw"] - acc_sum["olr"]) / tsec * 1e-3
-    heat2d = acc_sum["heat"] / tsec * 1e-3
+    toa2d = climate.toa_net(acc_sum)
+    heat2d = climate.flux_wm2(acc_sum, "heat")
     moc = host(meridional_overturning(dev_t(v_ann), g, m.ocean.umask)) \
         / 1e12
     moc_res = amoc = None
@@ -110,13 +111,8 @@ def yearly_diags(m, state, acc_sum, v_ann, psi_ann, ice_samples, area,
     ice_sh = np.asarray([s[1] for s in ice_samples])
 
     def zavg(f, lats):
-        out = []
-        for L in lats:
-            j = int(np.argmin(np.abs(lat - L)))
-            w = area[j]
-            out.append(round(float((f[j] * w).sum()
-                                   / max(w.sum(), 1e-30)), 1))
-        return out
+        return [round(x, 1) for x in climate.pick(
+            climate.zonal(f, area, empty=0.0), lat, lats)]
 
     extra = {}
     if moc_res is not None:
@@ -138,15 +134,15 @@ def yearly_diags(m, state, acc_sum, v_ann, psi_ann, ice_samples, area,
             extra["amoc_sv"] = round(amoc, 1)
     return dict(
         **extra,
-        sat_gm=round(float((sat * area).sum() / area.sum()), 3),
-        sst_gm=round(float((sst * oarea).sum() / oarea.sum()), 3),
-        toa_gm=round(float((toa2d * area).sum() / area.sum()), 3),
-        ohf_gm=round(float((heat2d * oarea).sum() / oarea.sum()), 3),
+        sat_gm=round(climate.area_mean(sat, area), 3),
+        sst_gm=round(climate.area_mean(sst, oarea), 3),
+        toa_gm=round(climate.area_mean(toa2d, area), 3),
+        ohf_gm=round(climate.area_mean(heat2d, oarea), 3),
         ice_nh_min=round(float(ice_nh.min()), 2),
         ice_nh_max=round(float(ice_nh.max()), 2),
         ice_sh_min=round(float(ice_sh.min()), 2),
         ice_sh_max=round(float(ice_sh.max()), 2),
-        psi_max=round(float(np.abs(psi_ann).max()) / 1e12, 1),
+        psi_max=round(climate.psi_max(psi_ann), 1),
         psi_max_loc=_psi_loc(psi_ann, m),
         acc_drake_sv=_drake_transport(psi_ann, m),
         moc_max=round(float(moc.max()), 1),
@@ -158,32 +154,7 @@ def yearly_diags(m, state, acc_sum, v_ann, psi_ann, ice_samples, area,
     )
 
 
-class SpinupWeights:
-    """The area weights of the yearly row: cell areas without the cyclic
-    columns (``area``), ocean areas (``oarea``), the latitudes, the
-    hemispheres' ocean areas on the device in float64 (for the sea-ice
-    samples) and the Atlantic mask of the residual AMOC."""
-
-    def __init__(self, m):
-        from .core.earth import atlantic_mask
-        g = m.grid
-        self.lat = np.asarray(g.yt)
-        area = (np.asarray(g.cst)[:, None] * np.asarray(g.dyt)[:, None]
-                * np.asarray(g.dxt)[None, :])
-        area[:, 0] = 0.0
-        area[:, -1] = 0.0
-        self.area = area
-        self.oarea = area * m.embm.tmsk.cpu().numpy()
-
-        def dev(x):
-            return torch.as_tensor(x, dtype=torch.float64, device=m.device)
-
-        self.nh = dev((self.lat > 0)[:, None] * self.oarea)
-        self.sh = dev((self.lat < 0)[:, None] * self.oarea)
-        self.amask = atlantic_mask(g)
-
-
-def run_year(m, state, seg_per_year, w: SpinupWeights):
+def run_year(m, state, seg_per_year, w: climate.ClimateWeights):
     """``seg_per_year`` segments (``m.run``: replayed on the card), their
     sums kept on the device in float64.  Returns the
     state and, read to the host once, the flux totals, the means of v,
@@ -225,7 +196,7 @@ def run_years(m, state, years, year0=0, accel=1.0, run_id="",
     yrlen = 360.0 if cfg.time.eqyear else 365.0
     if seg_per_year is None:
         seg_per_year = int(round(yrlen / cfg.time.segtim_days))
-    w = SpinupWeights(m)
+    w = climate.ClimateWeights(m)
     audit = FullAudit(m)
     earth_area = float(audit.area.double().sum())
     yr_s = yrlen * 86400.0
