@@ -14,7 +14,8 @@ Phases (each failure ends the run with a non-zero exit code):
 0. A watchdog (faulthandler, WATCHDOG_S) turns a hang into a traceback
    and exit 1; the card's name and power limit as nvidia-smi reports
    them; a CUDA card is required; the TF32 settings.
-1. Build the CUDA kernels (one nvcc call, uvic_tpu_torch/cuda.py) and
+1. Build the CUDA kernels (one nvcc a source, in parallel, and a link;
+   uvic_tpu_torch/cuda.py) and
    print the seconds it took and ptxas' report (registers, shared memory,
    spills); fail if a kernel spills.
 2. Build the flagship ocean (102x102x19, nt=2, float32) on the card,
@@ -185,15 +186,16 @@ Phases (each failure ends the run with a non-zero exit code):
    eager launches records nothing on the card): `launches_per_call`,
    the device kernels one call of each checked wrapper launches (one for
    the apply); and,
-   one replay of each step type at nt=2 and of the leapfrog step at
-   nt=41 (its mixing step's graph holds one launch of each kernel by the
-   capture's counters, phase 5), in which each of the three kernels must
-   run exactly once, with the device kernels per replayed step
-   (profiled again, up to REPLAY_SESSIONS times, when the profiler lost
-   a kernel's record; see check_replay_counts).  The sessions of the
-   eager and the replayed earth segment and of the nt=41 mixing step,
-   ~370,000, ~155,000 and ~138,000 recorded activities, went to pay for
-   phase 13 (the replayed segment's graph nodes are printed in phase 6).
+   one replay of each step type at nt=2, in which each of the three
+   kernels must run exactly once, with the device kernels per replayed
+   step (profiled again, up to REPLAY_SESSIONS times, when the profiler
+   lost a kernel's record; see check_replay_counts).  The sessions of
+   the eager and the replayed earth segment and of the nt=41 mixing
+   step, ~370,000, ~155,000 and ~138,000 recorded activities, went to
+   pay for phase 13, and that of the nt=41 leapfrog step (~138,000) for
+   phase 15 (the nt=41 graphs hold one launch of each kernel by the
+   capture's counters, phase 5; the replayed segment's graph nodes are
+   printed in phase 6).
 12. The ocean options, after the profiler (the first profiler session
    taken after this phase recorded no device activity).  Three flagship
    models (``entry._flagship`` with
@@ -277,6 +279,20 @@ Phases (each failure ends the run with a non-zero exit code):
    phase with its forcing in hand and the replayed segment, each one's
    ocean heat closure held to the probe's float32 limit
    (``RESID_LIMIT_WM2``).
+15. The multi-process bootstrap (``multihost_phase``): the (2, 3) mesh
+   of ``uvic_tpu_torch.make_multihost_artifact`` on the card in float32,
+   MULTIHOST_STEPS steps after the first, from a single launch (the
+   mesh on six of the eight ranks phase 13's ``spawn`` started, run at
+   the end of that phase) and from the artifact's two launchers
+   (``python3 -m torch.distributed.run``, two of four ranks, one world
+   of eight over TCP, gloo with host-staged CUDA tensors; ranks 6 and 7
+   idle and must exit 0), the two held bitwise (the gathered state's
+   digest and both checksums); B2 and B3 launched once a step on the
+   mesh's rank 0 of each run by the wrappers' counters (B1 never: the
+   sharded step takes the generic tracer step); B3 on rank 0's block
+   (its last step's inputs, seeded noise on T and S) and B2 on its
+   replicated solve against their plain versions; rank 0's step and
+   message times.  Budget MULTIHOST_BUDGET_S.
 
 The last two lines of standard output are a JSON line describing each
 kernel (`launches` is phase 4's eager count; `launches_by_path` the
@@ -300,7 +316,9 @@ the option models' launches a step, eager and per replayed step, and of
 an Euler-backward mixing step, `sharded` each rank's launches over
 phase 13's flagship steps, `sharded_earth_per_segment` over its
 earth segment and `sharded_options_per_step` over each option model's
-steps, by step pass, on every rank) and the result line {"ok": true,
+steps, by step pass, on every rank; `multihost_rank0_*` rank 0's
+launches in phase 15's two runs; `multihost` the phase 15 readings on
+rank 0's inputs) and the result line {"ok": true,
 "device": {...}}.  Each phase's end prints its seconds (``phase N: ...
 s``), and the line before the card's name all of them.
 
@@ -334,6 +352,7 @@ PRECISION_FACTOR x the JAX package's float32 max_rel of
 PRECISION_JAX_DIVERGENCE; its watchdog is PRECISION_YEAR_S.
 """
 
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -434,7 +453,7 @@ CONVECT_SEED = 5
 EARTH_RESTART = "earth_accept/restart.npz"
 EARTH_GOLDEN = "golden/regression/tsi_10yr_earth_r5.csv"
 EARTH_SEGMENTS = 2
-EARTH_BARE = 4
+EARTH_BARE = 2
 EARTH_YEAR = 72
 EARTH_SPLIT = 2
 EARTH_TRANSIENT = 2
@@ -627,6 +646,10 @@ TOL_SHARDED_EARTH = 0.0
 # it on one CPU (JAX 0.9.0; both dtypes on the CPU); the card's float32
 # against the CPU's float64 is held to PRECISION_FACTOR x each figure
 # (the golden limits' rule, golden/regression/spinup_earth_year.json).
+# Phase 15: make_multihost_artifact's (2, 3) mesh on the card, its step
+# count and the phase's budget
+MULTIHOST_STEPS = 2
+MULTIHOST_BUDGET_S = 45
 STUDY_STEPS = 40
 PRECISION_FACTOR = 5.0
 _STUDY_PHYSICS = {
@@ -3415,16 +3438,17 @@ def sharded_rank(mesh, job, option_jobs):
     finally:
         ss_mod.convct_full, ss_mod.tropic_step = convect, tropic
     out["options"] = sharded_option_ranks(mesh, option_jobs)
+    out["multihost"] = multihost_single_launch(mesh)
     return out
 
 
-def sharded_option_ranks(mesh, jobs):
-    """Phase 13's option models on a rank: each job through
-    ``run_sharded`` (its launch counters set to 0 before its steps);
-    rank 0 also returns, for each, the arguments of its last step's
-    convection (B3's on its block, under full convection) and its last
-    barotropic solve (B2's, replicated: the streamfunction's or the
-    surface pressure's, recorded at the model's solver)."""
+@contextlib.contextmanager
+def recorded_inputs(on=True):
+    """Yields a dict that, when ``on``, receives the last inputs of the
+    sharded step's convection (``"convect"``: B3's on the block, under
+    full convection) and of every barotropic solve (``"cg"``: B2's,
+    replicated, recorded at ``OceanModel.barotropic_solver``'s solver)
+    made inside the block, as NumPy arrays once it ends."""
     import torch
     import uvic_tpu_torch.parallel.shard_step as ss_mod
     from uvic_tpu_torch.models.ocean.model import OceanModel
@@ -3443,20 +3467,33 @@ def sharded_option_ranks(mesh, jobs):
             return solver(*a)
         return rec_solver, c2dtsf
 
+    if on:
+        ss_mod.convct_full = rec_convect
+        OceanModel.barotropic_solver = rec_solver_of
+    try:
+        yield seen
+    finally:
+        ss_mod.convct_full = convect
+        OceanModel.barotropic_solver = solver_of
+        for k, v in seen.items():
+            seen[k] = [x.cpu().numpy() if torch.is_tensor(x) else x
+                       for x in v]
+
+
+def sharded_option_ranks(mesh, jobs):
+    """Phase 13's option models on a rank: each job through
+    ``run_sharded`` (its launch counters set to 0 before its steps);
+    rank 0 also returns, for each, the arguments of its last step's
+    convection (B3's on its block, under full convection) and its last
+    barotropic solve (B2's, replicated: the streamfunction's or the
+    surface pressure's, recorded at the model's solver)."""
+    import torch
+    import uvic_tpu_torch.parallel.shard_step as ss_mod
     out = {}
     for name, job in jobs.items():
-        if mesh.rank == 0:
-            ss_mod.convct_full = rec_convect
-            OceanModel.barotropic_solver = rec_solver_of
-        try:
+        with recorded_inputs(mesh.rank == 0) as seen:
             out[name] = ss_mod.run_sharded(mesh, **job)
-        finally:
-            ss_mod.convct_full = convect
-            OceanModel.barotropic_solver = solver_of
-        out[name]["inputs"] = {
-            k: [x.cpu().numpy() if torch.is_tensor(x) else x for x in v]
-            for k, v in seen.items()}
-        seen.clear()
+        out[name]["inputs"] = seen
         torch.cuda.empty_cache()
     return out
 
@@ -3609,9 +3646,10 @@ def sharded_phase(m, state, forcing):
     """Phase 13: the flagship on SHARDED_MESH's eight ranks of one card,
     against the unsharded step; B3 and B2 on rank 0's inputs against
     their plain versions; then, in the same ranks, the earth segment
-    (``sharded_earth_check``) and the option models
-    (``sharded_option_check``).  Returns the kernel checks and the
-    ranks' launch counts."""
+    (``sharded_earth_check``), the option models
+    (``sharded_option_check``) and phase 15's single launch
+    (``multihost_single_launch``).  Returns the kernel checks, the
+    ranks' launch counts and rank 0's single launch."""
     import numpy as np
     import torch
     from uvic_tpu_torch.convert import ocean_state_to_numpy
@@ -3706,7 +3744,8 @@ def sharded_phase(m, state, forcing):
            for name, o in options.items()}
     return dict(convect=k_convect, cg=k_cg, gaps=gaps, timing=timing,
                 spawn_s=spawn_s, earth=earth, options=opt,
-                launches=[r["launches"] for r in res])
+                launches=[r["launches"] for r in res],
+                multihost=r0["multihost"])
 
 
 def sharded_job(m, start, forcing, schedule):
@@ -3836,6 +3875,115 @@ def sharded_option_check(name, o, ranks):
             out[key].pop("per_call_fn", None)
             say_kernel(f"sharded {name} rank 0", out[key])
     return out
+
+
+def multihost_single_launch(mesh):
+    """Phase 15's single launch, on phase 13's ranks: the (2, 3) mesh of
+    ``make_multihost_artifact`` on the first six of them (the other two
+    idle, as in the JAX artifact's 6 of 8 devices), each running
+    ``run_multihost.rank_run`` (its launch counters set to 0 before its
+    steps and read after); rank 0 returns its result with the arguments
+    of its last step's convection (B3's on its block) and barotropic
+    solve (B2's, replicated), the others None.  Every rank waits for the
+    others at a barrier of the world before it returns."""
+    import torch.distributed as dist
+    from uvic_tpu_torch import make_multihost_artifact as art
+    from uvic_tpu_torch.parallel.mesh import make_mesh
+    from uvic_tpu_torch.run_multihost import rank_run
+    sub = make_mesh(art.MESH, device=mesh.device)
+    out = None
+    if sub is not None:
+        with recorded_inputs(sub.rank == 0) as seen:
+            out = rank_run(sub, MULTIHOST_STEPS)
+        if out is not None:
+            out["inputs"] = seen
+    dist.barrier()
+    return out
+
+
+def multihost_phase(single):
+    """Phase 15: the (2, 3) mesh of ``make_multihost_artifact`` on the
+    card, MULTIHOST_STEPS steps after the first, from the artifact's
+    two-launcher run (two ``torch.distributed.run`` launchers of four
+    ranks, one world of eight, ranks 6 and 7 idle), held bitwise (state
+    digest and checksums) to ``single``, rank 0's result of the single
+    launch (``multihost_single_launch``: the mesh on six of the eight
+    ranks that phase 13's one ``spawn`` started); the launches of B2 and
+    B3 on the mesh's rank 0 of both; B3 on rank 0's block (its last
+    step's inputs with seeded noise on T and S, so that columns convect:
+    the cold start convects nowhere) and B2 on its replicated solve
+    against their plain versions."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from uvic_tpu_torch import make_multihost_artifact as art
+    from uvic_tpu_torch.config import ModelConfig
+    from uvic_tpu_torch.models.ocean.model import make_ocean
+    t_phase = t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_multihost_") as tmp:
+        two, statuses, codes = art.two_launchers(MULTIHOST_STEPS, "cuda",
+                                                 tmp)
+    two_s = time.perf_counter() - t0
+    art.check_two_launchers(two, statuses)
+    r0 = statuses[0]
+    idle = {r: s["code"] for r, s in statuses.items() if not s["on_mesh"]}
+    say(f"  two launchers x {two['local_devices']} ranks = "
+        f"{two['global_devices']} global {two_s:.1f} s, launchers' exit "
+        f"codes {codes}, idle ranks' exit codes {json.dumps(idle)}; "
+        f"transport {r0['transport']}; the single launch: phase 13's "
+        f"spawn, the mesh on {art.MESH[0] * art.MESH[1]} of its "
+        f"{SHARDED_MESH[0] * SHARDED_MESH[1]} ranks")
+    same = {"digest": r0["digest"] == single["digest"],
+            **{k: two[k] == single[k]
+               for k in ("checksum_t0", "checksum_ke")}}
+    say(f"  two launchers against the single launch, bitwise: "
+        f"{json.dumps(same)} (checksum_t0 {two['checksum_t0']!r}, "
+        f"checksum_ke {two['checksum_ke']!r})")
+    if not all(same.values()) or two["nan"] or single["nan"]:
+        raise AssertionError("the two-launcher run differs from the single "
+                             "launch")
+    want = {"fct_tracer_step": 0, "apply_region_means": MULTIHOST_STEPS + 1,
+            "congrad": MULTIHOST_STEPS + 1}
+    for label, got in (("two launchers", r0["launches"]),
+                       ("single launch", single["launches"])):
+        say(f"  launches on the mesh's rank 0, {label}: {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{label}: rank 0 launched {got}, the path "
+                                 f"{want}")
+    say(f"  rank 0's step: two launchers {r0['ms_per_step']} ms, "
+        f"{r0['exchange_ms_per_step']} ms of it in messages; single launch "
+        f"{single['ms_per_step']} ms, {single['exchange_ms_per_step']} ms "
+        f"(eight processes sharing one card: a check of the bootstrap, not "
+        f"a speed-up); {card_line()}")
+    ts, kmt, *rest = [torch.as_tensor(x, device="cuda")
+                      if isinstance(x, np.ndarray) else x
+                      for x in single["inputs"]["convect"]]
+    rng = np.random.default_rng(NOISE_SEED)
+    noise = np.stack([NOISE_T * rng.standard_normal(ts.shape[1:]),
+                      NOISE_S * rng.standard_normal(ts.shape[1:])])
+    idx = torch.arange(ts.shape[1], device="cuda").reshape(-1, 1, 1)
+    ts = ts.clone()
+    ts[:2] += torch.as_tensor(noise, dtype=ts.dtype, device="cuda") \
+        * (idx < kmt[None]).to(ts.dtype)
+    say(" apply_region_means on rank 0's block (its last step's inputs, "
+        "noise on T and S)")
+    k_convect = check_convect({"convect": (ts, kmt, *rest)})
+    say(" congrad on rank 0's replicated solve (its last step's inputs)")
+    m = make_ocean(ModelConfig().replace(dtype="float32"), device="cuda")
+    solver, _ = m.barotropic_solver(True)
+    k_cg = check_cg_solve(solver, tuple(
+        torch.as_tensor(x, device="cuda") if isinstance(x, np.ndarray)
+        else x for x in single["inputs"]["cg"]), "multihost rank 0")
+    for k in (k_convect, k_cg):
+        k.pop("per_call_fn", None)
+        say_kernel("multihost rank 0", k)
+    say(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s (budget "
+        f"{MULTIHOST_BUDGET_S} s)")
+    return dict(convect=k_convect, cg=k_cg, launches=r0["launches"],
+                single_launches=single["launches"],
+                step_ms=r0["ms_per_step"],
+                exchange_ms=r0["exchange_ms_per_step"], idle=idle)
 
 
 def start_study_references():
@@ -4211,8 +4359,6 @@ def main(argv):
                                  f"{k['launches_per_call']} device kernels "
                                  "per call")
     per_step2 = check_replay_counts(m, state, forcing, "nt=2")
-    per_step41 = check_replay_counts(m41, s41, f41, "nt=41", ("leapfrog",))
-    say(f"  kernel launches per MOBI step: {json.dumps(per_step41)}")
     phase("phase 12: the ocean options at full width (three flagship "
           "models with options on top) and every option in the small form")
     optres = options_phase()
@@ -4226,6 +4372,11 @@ def main(argv):
           "MOBI, float32 on the card against float64 on the CPU) and the "
           "segment closure probe")
     prec = precision_phase(earth, study_pool, study_refs)
+
+    phase(f"phase 15: the multi-process bootstrap, {MULTIHOST_STEPS} steps "
+          "of the (2, 3) mesh from two launchers of four ranks against a "
+          "single launch")
+    multi = multihost_phase(shard["multihost"])
 
     by_path = {k: {"nt2_eager": launches[k],
                    "nt2_run_scan_per_step": captured2[k],
@@ -4262,7 +4413,10 @@ def main(argv):
                        for name, r in shard["options"].items()},
                    "precision_study_eager_and_captured": {
                        label: prec[label]["launches"][k]
-                       for label in ("physics", "MOBI")}}
+                       for label in ("physics", "MOBI")},
+                   "multihost_rank0_two_launchers": multi["launches"][k],
+                   "multihost_rank0_single_launch":
+                       multi["single_launches"][k]}
                for k in launches}
 
     sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
@@ -4355,6 +4509,12 @@ def main(argv):
                 for name, r in shard["options"].items()
                 for kk in [{"apply_region_means": "convect",
                             "congrad": "cg"}[k["name"]]] if kk in r}
+        km = {"apply_region_means": multi["convect"],
+              "congrad": multi["cg"]}.get(k["name"])
+        if km is not None:
+            entry["multihost"] = {key: km[key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "iters") if key in km}
         if k["name"] == "apply_region_means":
             kbr = opts["brine_convect"]
             entry["earth_brine"] = {key: kbr[key] for key in (
@@ -4363,8 +4523,8 @@ def main(argv):
         kernels.append(entry)
     say(f"steps: nt=2 eager {statistics.median(step_ms):.3f} ms, replayed "
         f"{scan_ms:.3f} ms ({per_step2['leapfrog']} kernels); nt=41 eager "
-        f"{eager41_ms:.1f} ms, replayed {scan41_ms:.1f} ms "
-        f"({per_step41['leapfrog']} kernels); earth segment eager "
+        f"{eager41_ms:.1f} ms, replayed {scan41_ms:.1f} ms; earth segment "
+        f"eager "
         f"{earth['eager_ms']:.1f} ms, replayed {earth['replay_ms']:.1f} ms "
         f"({earth['graph_nodes']} graph nodes), inside Run "
         f"{earth['run_ms']:.1f} ms "
@@ -4384,7 +4544,9 @@ def main(argv):
         + f" ({SHARDED_MESH[0] * SHARDED_MESH[1]} ranks sharing one card); "
         f"precision study on the card {prec['physics']['card_s']:.1f} s "
         f"(physics) and {prec['MOBI']['card_s']:.1f} s (MOBI), segment "
-        f"closure residual {prec['closure']['manual']['resid_wm2']} W/m^2")
+        f"closure residual {prec['closure']['manual']['resid_wm2']} W/m^2; "
+        f"two-launcher bootstrap rank 0 step {multi['step_ms']} ms with "
+        f"{multi['exchange_ms']} ms of messages")
     phase(None)
     say("phase seconds: " + json.dumps(
         {n: round(t, 1) for n, t in PHASE_S.items()}))

@@ -34,6 +34,7 @@ from uvic_tpu_torch.coupler.tracers import TracerIndex as TIndex
 from uvic_tpu_torch.coupler.tracers import build_registry as t_registry
 from uvic_tpu_torch.models.bgc.gasx import co2calc_sws as t_co2calc
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = dict(isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
                 gthflx=True, aniso_visc=True, aniso_zonal=True)

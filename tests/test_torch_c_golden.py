@@ -33,6 +33,7 @@ from uvic_tpu_torch.ops.convection import convct_ncon
 from uvic_tpu_torch.ops.stencil import setbcx
 from uvic_tpu_torch.ops.tracer_kernel import (TracerStepConsts,
                                               fct_tracer_step_ref)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-9, 1e-12
 

@@ -19,6 +19,7 @@ from uvic_tpu.checks import validate as j_validate
 import uvic_tpu_torch.config as TC
 from uvic_tpu_torch.checks import ConfigError, validate
 from uvic_tpu_torch.coupler.driver import CoupledModel
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 
 def _ocean(**kw):

@@ -43,6 +43,7 @@ from uvic_tpu_torch.io.restart import load_restart
 from uvic_tpu_torch.models.ocean.model import make_forcing
 from uvic_tpu_torch.probes import (closure, energy, moc, replay_vs_manual,
                                    toa_decompose, triage, year_closure)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RESTART = "earth_accept/restart.npz"
 RTOL = 1e-12
@@ -618,10 +619,7 @@ def small_tools(monkeypatch):
         monkeypatch.setattr(
             mod, "run_years",
             lambda *a, _loop=loop, **k: _loop(*a, seg_per_year=1, **k))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     yield run_earth
-    torch.set_num_threads(threads)
 
 
 def test_entry_points_run_a_segment(small_tools, tmp_path, capsys):

@@ -18,6 +18,7 @@ from uvic_tpu_torch.ops.convection import (MAX_KM, MAX_THREADS, STAGES,
                                            apply_region_means_ref,
                                            column_stride, region_means_launch)
 from uvic_tpu_torch.ops.tracer_kernel import SMEM_LIMIT
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 H100_SMS = 132
 SM_THREADS = 2048           # resident threads an SM holds

@@ -47,6 +47,7 @@ from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.diag.tsi import TsiDiagnostics, TsiWriter
 from uvic_tpu_torch.entry import _earth
 from uvic_tpu_torch.io.restart import load_restart, save_restart
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RESTART = ROOT / "earth_accept" / "restart.npz"
@@ -74,12 +75,7 @@ def _close(got, ref, what, tol=TOL):
 def runs():
     # one intra-op thread: a segment is ~10^5 small operations, which a
     # thread pool slows down when other test processes share the cores
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _runs()
-    finally:
-        torch.set_num_threads(threads)
+    return _runs()
 
 
 def _runs():
@@ -276,14 +272,9 @@ def test_coupled_ocean_options_match_jax(option):
     js = jo.step(jo.init_state(t0), j_make_forcing(jnp.asarray(smf),
                                                    jnp.asarray(stf)),
                  leapfrog=False)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        ts = to.step(to.init_state(t0), make_forcing(torch.as_tensor(smf),
-                                                     torch.as_tensor(stf)),
-                     leapfrog=False)
-    finally:
-        torch.set_num_threads(threads)
+    ts = to.step(to.init_state(t0), make_forcing(torch.as_tensor(smf),
+                                                 torch.as_tensor(stf)),
+                 leapfrog=False)
     for name in ("t", "u", "psi0", "ptd", "ubar"):
         _close(getattr(ts, name).numpy(), np.asarray(getattr(js, name)),
                f"{option} {name}")

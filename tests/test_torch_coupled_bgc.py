@@ -57,6 +57,7 @@ from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.coupler.run import Run
 from uvic_tpu_torch.coupler.tracers import build_registry
 from uvic_tpu_torch.io.restart import load_restart, save_restart
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RESTART = ROOT / "earth_accept" / "restart.npz"
@@ -127,8 +128,6 @@ def run_both(tmp, over=None, transient=None):
     module)`` makes each package's TransientForcing.  Returns the
     models, end states, the reference's last forcing, the means each Run
     wrote and the output directories."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     written = {"jax": [], "port": []}
     j_write, t_write = j_netcdf.write_tavg, t_run_mod.write_tavg
 
@@ -155,7 +154,6 @@ def run_both(tmp, over=None, transient=None):
         ts = Run(tm, str(out["port"])).run(ts0, nseg=NSEG)
     finally:
         j_netcdf.write_tavg, t_run_mod.write_tavg = j_write, t_write
-        torch.set_num_threads(threads)
     return dict(jm=jm, js=js, tm=tm, ts=ts, ts0=ts0, rec=rec,
                 written=written, out=out)
 
@@ -303,14 +301,9 @@ def test_restart_of_another_shape_raises():
 
 
 def test_cli_runs_npzd_on_the_cpu(tmp_path, capsys):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        code = run_production.main([
-            "--bgc", "npzd", "--device", "cpu", "--years", str(5.0 / 360.0),
-            "--tsiint", "5", "--timavgint", "5", "--outdir", str(tmp_path)])
-    finally:
-        torch.set_num_threads(threads)
+    code = run_production.main([
+        "--bgc", "npzd", "--device", "cpu", "--years", str(5.0 / 360.0),
+        "--tsiint", "5", "--timavgint", "5", "--outdir", str(tmp_path)])
     assert code == 0
     assert "model years" in capsys.readouterr().out
     with np.load(tmp_path / "restart.npz") as d:
@@ -339,28 +332,23 @@ def test_float32_model_runs_its_carbon_chemistry_in_float64():
     from uvic_tpu_torch.convert import coupled_state_from_numpy
     from uvic_tpu_torch.coupler.driver import CHEM_DTYPE
     assert CHEM_DTYPE == torch.float64
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cfg = bgc_config(t_config)
-        m32 = CoupledModel(cfg.replace(dtype="float32"), device="cpu")
-        m64 = CoupledModel(cfg, device="cpu")
-        s32 = m32.init_state()
-        s64 = coupled_state_from_numpy(coupled_state_to_numpy(s32),
-                                       m64.init_state())
-        co2 = torch.tensor(354.0)
-        sed32, fl32 = m32.sediment_step(s32, co2.float())
-        sed64, fl64 = m64.sediment_step(s64, co2.double())
-        for f in ("calgg", "orggg", "carb", "o2", "zrct", "buried"):
-            a, b = getattr(sed32, f), getattr(sed64, f)
-            assert a.dtype == torch.float32, f
-            assert torch.equal(a, b.float()), f
-        for k in ("dic", "alk"):
-            assert fl32[k].dtype == torch.float32
-            assert torch.equal(fl32[k], fl64[k].float()), k
-        s32 = m32.run(s32, 1)
-    finally:
-        torch.set_num_threads(threads)
+    cfg = bgc_config(t_config)
+    m32 = CoupledModel(cfg.replace(dtype="float32"), device="cpu")
+    m64 = CoupledModel(cfg, device="cpu")
+    s32 = m32.init_state()
+    s64 = coupled_state_from_numpy(coupled_state_to_numpy(s32),
+                                   m64.init_state())
+    co2 = torch.tensor(354.0)
+    sed32, fl32 = m32.sediment_step(s32, co2.float())
+    sed64, fl64 = m64.sediment_step(s64, co2.double())
+    for f in ("calgg", "orggg", "carb", "o2", "zrct", "buried"):
+        a, b = getattr(sed32, f), getattr(sed64, f)
+        assert a.dtype == torch.float32, f
+        assert torch.equal(a, b.float()), f
+    for k in ("dic", "alk"):
+        assert fl32[k].dtype == torch.float32
+        assert torch.equal(fl32[k], fl64[k].float()), k
+    s32 = m32.run(s32, 1)
     for k, v in coupled_state_to_numpy(s32).items():
         assert v.dtype.kind == "i" or v.dtype == np.float32, k
         assert np.isfinite(v).all(), k

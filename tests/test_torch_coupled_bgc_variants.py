@@ -20,6 +20,7 @@ import pytest
 
 from test_torch_coupled_bgc import (check_forcing, check_means, check_state,
                                     check_written_means, run_both)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 
 def _npzd(cfg, C):

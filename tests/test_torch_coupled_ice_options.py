@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from test_torch_coupled_options import check_segment, check_state, run_both
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 
 def _ice(**kw):

@@ -44,6 +44,7 @@ from uvic_tpu_torch.convert import (coupled_state_from_numpy,
                                     coupled_state_to_numpy)
 from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.io.restart import load_restart, save_restart
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 NSEG = 2
 TOL = 1e-9
@@ -98,40 +99,35 @@ def run_both(option):
     the same initial state, on one intra-op thread (a segment is ~10^5
     small operations, which a thread pool slows down when other test
     processes share the cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        jm = JCoupled(config(j_small_config, option))
-        tm = CoupledModel(config(small_config, option), device="cpu")
-        t0 = initial_t(jm.grid, jm.topo.tmask)
-        rec = {}
-        gosbc, core = jm.gosbc, jm._segment_core
+    jm = JCoupled(config(j_small_config, option))
+    tm = CoupledModel(config(small_config, option), device="cpu")
+    t0 = initial_t(jm.grid, jm.topo.tmask)
+    rec = {}
+    gosbc, core = jm.gosbc, jm._segment_core
 
-        def gosbc_rec(*a, **k):
-            f = gosbc(*a, **k)
-            rec["traced"] = {k: getattr(f, k) for k in tm.forcing_names}
-            return f
+    def gosbc_rec(*a, **k):
+        f = gosbc(*a, **k)
+        rec["traced"] = {k: getattr(f, k) for k in tm.forcing_names}
+        return f
 
-        def core_rec(st, sc):
-            new, diag = core(st, sc)
-            diag["forcing"] = rec.pop("traced")
-            return new, diag
+    def core_rec(st, sc):
+        new, diag = core(st, sc)
+        diag["forcing"] = rec.pop("traced")
+        return new, diag
 
-        jitted = jax.jit(core_rec)
+    jitted = jax.jit(core_rec)
 
-        def segment(st, sc):
-            new, diag = jitted(st, sc)
-            rec["forcing"] = {k: np.asarray(v)
-                              for k, v in diag.pop("forcing").items()}
-            return new, diag
+    def segment(st, sc):
+        new, diag = jitted(st, sc)
+        rec["forcing"] = {k: np.asarray(v)
+                          for k, v in diag.pop("forcing").items()}
+        return new, diag
 
-        jm.gosbc = gosbc_rec
-        jm._segment_jit = segment
-        js = jm.run(jm.init_state(t0.copy()), NSEG)
-        ts = tm.run(tm.init_state(t0.copy()), NSEG)
-        return dict(jm=jm, js=js, tm=tm, ts=ts, forcing=rec["forcing"])
-    finally:
-        torch.set_num_threads(threads)
+    jm.gosbc = gosbc_rec
+    jm._segment_jit = segment
+    js = jm.run(jm.init_state(t0.copy()), NSEG)
+    ts = tm.run(tm.init_state(t0.copy()), NSEG)
+    return dict(jm=jm, js=js, tm=tm, ts=ts, forcing=rec["forcing"])
 
 
 def close(got, ref, what, tol=TOL):

@@ -17,6 +17,7 @@ import torch
 
 from uvic_tpu.models.ice import cpts as J
 from uvic_tpu_torch.models.ice import cpts as T
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 RNG = 2024

@@ -34,20 +34,11 @@ from uvic_tpu_torch.convert import (coupled_state_from_numpy,
                                     coupled_state_to_numpy)
 from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.debug import bisect_segment, nan_report
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 OCEAN = dict(isopycmix=False, gent_mcwilliams=False, dtts=43200.0,
              dtuv=1800.0, dtsf=1800.0, tolrsf=1e8)
 SUBSTEPS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_nan_report_keys_match_jax():

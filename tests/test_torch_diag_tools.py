@@ -42,18 +42,9 @@ from uvic_tpu_torch.io import regrid as t_regrid
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
 from uvic_tpu_torch.models.ocean.params import \
     build_ocean_params as t_build_params
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_regrid_matches_jax():

@@ -66,6 +66,7 @@ from uvic_tpu_torch.models.land import mtlm as t_mtlm
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
 from uvic_tpu_torch.ops.convection import convection_extent as t_extent
 from uvic_tpu_torch.ops.solvers import bicgstab_safe as t_bicgstab
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RESTART = Path(__file__).resolve().parents[1] / "earth_accept" / \
     "restart.npz"

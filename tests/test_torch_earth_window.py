@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LOG = ROOT / "earth_accept_torch" / "window_log.jsonl"

@@ -22,6 +22,7 @@ from uvic_tpu_torch.config import small_config
 from uvic_tpu_torch.core.earth import atlantic_mask
 from uvic_tpu_torch.diag import energy as T
 from uvic_tpu_torch.models.ocean.model import make_forcing, make_ocean
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
 

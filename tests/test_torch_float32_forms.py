@@ -29,6 +29,7 @@ from uvic_tpu_torch.ops.convection import (apply_region_means_ref,
                                            region_reference)
 from uvic_tpu_torch.ops.eos import fit_eos
 from uvic_tpu_torch.ops.tridiag import invtri, solve_tridiag_masked
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 KM, JMT, IMT = 19, 6, 7
 

@@ -43,6 +43,7 @@ from uvic_tpu_torch.core.grid import make_grid
 from uvic_tpu_torch.coupler.driver import CoupledModel, pack_state
 from uvic_tpu_torch.io import forcing as tf
 from uvic_tpu_torch.models.embm.winds import slope_s
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-9
 NSEG = 2
@@ -94,14 +95,6 @@ def _close_states(ts, js, what):
             _close(got[k], ref[k], f"{what} {k}")
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.mark.parametrize("name", SERIES)
 def test_default_series_equal_reference(name):
     got, ref = getattr(tf, name)(), getattr(jf, name)()
@@ -148,7 +141,7 @@ def test_sulphate_pattern_and_landice_fields_bitwise():
 
 
 @pytest.fixture(scope="module")
-def transient(one_thread):
+def transient():
     jm = JCoupled(_cfg(j_small_config))
     tm = CoupledModel(_cfg(small_config), device="cpu")
     jm.set_transient_forcing(_forcing(jf))
@@ -238,7 +231,7 @@ def test_stages_read_the_forcing_from_the_workspace(transient):
 
 
 @pytest.fixture(scope="module")
-def awind(one_thread):
+def awind():
     jm = JCoupled(_cfg(j_small_config, awind=True))
     tm = CoupledModel(_cfg(small_config, awind=True), device="cpu")
     js, ts = jm.init_state(), tm.init_state()

@@ -25,6 +25,7 @@ from uvic_tpu_torch.config import mobi_full as t_mobi_full
 from uvic_tpu_torch.coupler.tracers import TracerIndex as TIndex
 from uvic_tpu_torch.coupler.tracers import build_registry as t_registry
 from uvic_tpu_torch.models.bgc import gasx as tg
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
 SHAPE = (7, 9)

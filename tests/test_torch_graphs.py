@@ -11,6 +11,7 @@ import gc
 import weakref
 
 from uvic_tpu_torch.models.ocean.graphs import capturing
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 
 class _Holder:

@@ -29,6 +29,7 @@ from uvic_tpu_torch.parallel.launch import RankFailed, spawn
 from uvic_tpu_torch.parallel.mesh import RankMesh, make_mesh
 
 import torch_rank_fns
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SEED = 14
 # (mesh shape, halo, trailing ghost/image columns, lead dims, ly, lx):
@@ -149,7 +150,7 @@ def halo_runs():
               "relyr": np.float64(0.25)}
     res = spawn(torch_rank_fns.halo_rounds, (2, 4), "gloo", "cpu", 120.0,
                 exchanges, [(shape, w, gx, arrays)], fields, JMT, IMT,
-                (2, 2))
+                (3, 3))
     return dict(res=res, ref_exchanges=ref_exchanges, ref_pack=ref_pack,
                 fields=fields)
 
@@ -196,8 +197,10 @@ def test_shard_and_gather_round_trip(halo_runs):
 
 
 def test_make_mesh_refuses_another_world_size(halo_runs):
+    """A mesh larger than the world (a smaller one takes part of it:
+    tests/test_torch_multihost_artifact.py)."""
     for r in halo_runs["res"]:
-        assert r["bad_mesh"] == ("mesh (2, 2) needs 4 ranks, the process "
+        assert r["bad_mesh"] == ("mesh (3, 3) needs 9 ranks, the process "
                                  "group has 8")
     with pytest.raises(ValueError, match="needs 2 ranks"):
         make_mesh((2, 1), device="cpu")
@@ -235,6 +238,16 @@ def test_window_pad_and_crop_match_jax():
 def test_spawn_raises_when_a_rank_raises():
     with pytest.raises(RankFailed, match="rank 1 raises on purpose"):
         spawn(torch_rank_fns.raise_on, (1, 2), "gloo", "cpu", 60.0, 1)
+
+
+def test_spawn_names_the_rank_whose_code_failed():
+    """The blame race forced: rank 1 closes its connections at once, so
+    that rank 0 dies of the transport first, and raises a second later;
+    rank 1 is named, with its traceback."""
+    with pytest.raises(RankFailed, match=r"(?s)^rank 1 exited.*rank 1 "
+                                         r"raises on purpose"):
+        spawn(torch_rank_fns.raise_after_peers_die, (1, 2), "gloo", "cpu",
+              60.0, 1)
 
 
 def test_spawn_times_out_when_a_rank_hangs():

@@ -17,6 +17,7 @@ from uvic_tpu_torch.config import ModelConfig, small_config
 from uvic_tpu_torch.models.ocean.model import make_ocean
 from uvic_tpu_torch.ops.solvers import (island_sum, island_sum_by_reduction,
                                         make_inv)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("cfg", [small_config(imt=40, jmt=34, km=8),

@@ -33,6 +33,7 @@ from uvic_tpu_torch.ops.cg_kernel import CGSolver
 from uvic_tpu_torch.ops.convection import apply_region_means
 from uvic_tpu_torch.ops.tracer_kernel import (TracerStepConsts,
                                               fct_tracer_step)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 
 def T(x):

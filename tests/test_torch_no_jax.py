@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 import uvic_tpu_torch
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(uvic_tpu_torch.__file__).resolve().parent
@@ -58,6 +59,8 @@ def test_every_module_imports_without_jax():
             "uvic_tpu_torch.precision_year",
             "uvic_tpu_torch.precision_study", "uvic_tpu_torch.run_earth",
             "uvic_tpu_torch.tune_earth", "uvic_tpu_torch.diag.climate",
+            "uvic_tpu_torch.make_multihost_artifact",
+            "uvic_tpu_torch.exp_shdiff",
             *(f"uvic_tpu_torch.probes.{name}" for name in (
                 "year_closure", "segment_closure", "replay_vs_manual",
                 "energy", "toa_decompose", "closure", "moc", "triage"))

@@ -39,6 +39,7 @@ from uvic_tpu_torch.ops import filters as t_filters
 from uvic_tpu_torch.ops.cg_kernel import CGSolver
 
 from torch_option_runs import SP_CONVERGED, setup
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
 # functions with a barotropic CG solve inside, solved to convergence in

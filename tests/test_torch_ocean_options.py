@@ -10,9 +10,9 @@ With isopycnal mixing on, the Smagorinsky tracer mixing is not taken
 """
 
 import pytest
-import torch
 
 from torch_option_runs import assert_close, step_both
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ISO = dict(isopycmix=True, gent_mcwilliams=True)
 CASES = {
@@ -32,16 +32,6 @@ CASES = {
     "isopycnal_smagnl": dict(hmix="smagnl", **ISO),
     "isopycnal_quicker": dict(tracer_advection="quicker", **ISO),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("name", list(CASES))

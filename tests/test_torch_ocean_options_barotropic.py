@@ -18,6 +18,7 @@ import torch
 
 from torch_option_runs import SP_CONVERGED, assert_close, scan_both, \
     step_both
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SP = dict(barotropic="surface_pressure", **SP_CONVERGED)
 IFS = dict(barotropic="implicit_free_surface", **SP_CONVERGED)
@@ -36,16 +37,6 @@ CASES = {
     "walls_isopycnal": (dict(isopycmix=True, gent_mcwilliams=True),
                         dict(cyclic=False)),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("name", list(CASES))

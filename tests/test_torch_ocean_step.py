@@ -26,6 +26,7 @@ from uvic_tpu_torch.convert import (ocean_state_from_numpy,
                                     ocean_state_to_numpy)
 from uvic_tpu_torch.models.ocean.model import make_forcing as t_make_forcing
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = dict(isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
                 gthflx=True, aniso_visc=True, aniso_zonal=True)
@@ -132,11 +133,6 @@ def test_options_step_like_jax(option):
     3 steps from itt 0, a mixing step first, agree with the reference to
     1e-9 (``test_torch_ocean_options*.py`` take every option)."""
     from torch_option_runs import assert_close, step_both
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        hist = step_both(option, nsteps=3)
-    finally:
-        torch.set_num_threads(threads)
+    hist = step_both(option, nsteps=3)
     for n, (ref, got) in enumerate(hist):
         assert_close(ref, got, f"{option} step {n}")

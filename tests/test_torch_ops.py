@@ -38,6 +38,7 @@ from uvic_tpu_torch.ops import eos as t_eos
 from uvic_tpu_torch.ops import solvers as t_solvers
 from uvic_tpu_torch.ops import stencil as t_st
 from uvic_tpu_torch.ops import tridiag as t_tri
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = dict(isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
                 gthflx=True, aniso_visc=True, aniso_zonal=True)

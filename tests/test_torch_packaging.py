@@ -17,6 +17,7 @@ import zipfile
 from pathlib import Path
 
 import pytest
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PROJECT = Path("packaging") / "uvic_tpu_torch"

@@ -33,6 +33,7 @@ from uvic_tpu.ops.solvers import IslandIndex, make_inv
 from uvic_tpu_torch.config import ModelConfig as TModelConfig
 from uvic_tpu_torch.config import small_config as t_small_config
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = dict(isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
                 gthflx=True, aniso_visc=True, aniso_zonal=True)

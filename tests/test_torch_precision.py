@@ -28,9 +28,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from uvic_tpu_torch import precision_study, precision_year
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PRECISION = ROOT / "golden" / "precision"
@@ -45,14 +45,6 @@ def _script(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-@pytest.fixture(scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_compare_reproduces_divergence(capsys):
@@ -78,7 +70,7 @@ def _small_earth(earth_config, small_config):
     return cfg
 
 
-def test_year_rows_match_script(one_thread, monkeypatch, tmp_path, capsys):
+def test_year_rows_match_script(monkeypatch, tmp_path, capsys):
     import uvic_tpu.config as jcfg
     import uvic_tpu_torch.config as tcfg
     script = _script("precision_year")
@@ -103,7 +95,7 @@ def test_year_rows_match_script(one_thread, monkeypatch, tmp_path, capsys):
 
 
 @pytest.fixture(scope="module")
-def study_runs(one_thread):
+def study_runs():
     script = _script("precision_study")
     jm, jsnaps = script.run("float64", 8, False)
     tm, tsnaps = precision_study.run("float64", 8, False, device="cpu")

@@ -42,6 +42,7 @@ from uvic_tpu_torch.models.embm.insolation import (daily_insolation,
                                                    orbital_params)
 from uvic_tpu_torch.ops import stencil
 from uvic_tpu_torch.ops.filters import build_fir_filter, fir_filter
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 TOL_FIR = 1e-12
 TOL_ISO = 1e-12

@@ -38,21 +38,12 @@ from uvic_tpu_torch.io.timeforce import \
     default_surface_climatology as t_climatology
 from uvic_tpu_torch.models.ocean.model import make_forcing as t_make_forcing
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RESTORING = dict(dtts=43200.0, dtuv=1800.0, dtsf=1800.0, tolrsf=1e8)
 FIELDS = ("t", "tm1", "u", "um1", "psi0", "psi1", "ptd", "ptdb")
 SEG_DAYS = 5.0
 RTOL = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(iso=False, **kw):

@@ -45,22 +45,13 @@ from chip_smoke import (RESTORING_GOLDEN, RESTORING_SEG_DAYS,
                         RESTORING_SEGMENTS, RESTORING_YRLEN, restoring_gaps,
                         restoring_row, restoring_weights,
                         restoring_year_rows)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 OCEAN = dict(isopycmix=False, gent_mcwilliams=False, dtts=432000.0,
              dtuv=1800.0, dtsf=1800.0, tolrsf=1e8)
 FIELDS = ("t", "tm1", "u", "um1", "psi0", "psi1", "ptd", "ptdb")
 RTOL = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

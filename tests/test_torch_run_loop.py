@@ -53,6 +53,7 @@ from uvic_tpu_torch.diag.stability import StabilityMonitor
 from uvic_tpu_torch.io.netcdf import read_var
 from uvic_tpu_torch.io.tavg import TavgAccumulator, coupled_tavg_fields
 from uvic_tpu_torch.models.ocean.model import make_forcing as t_make_forcing
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 RESTART = ROOT / "earth_accept" / "restart.npz"
@@ -99,41 +100,36 @@ def _close(got, ref, what, tol=TOL):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    tmp = tmp_path_factory.mktemp("runs")
+    jm = JCoupled(_cfg(j_small_config))
+    jrun = JRun(jm, str(tmp / "ref"))
+    js = jrun.run(jm.init_state(), days=DAYS)
+    tm = _port()
+    trun = Run(tm, str(tmp / "port"))
+    # each segment's end tracers, for the convection extent's records
+    ends, inner = [], tm.run
+
+    def segment(state, n, eager=False):
+        state = inner(state, n, eager)
+        ends.append(state.ocean.t.numpy().copy())
+        return state
+
+    tm.run = segment
     try:
-        tmp = tmp_path_factory.mktemp("runs")
-        jm = JCoupled(_cfg(j_small_config))
-        jrun = JRun(jm, str(tmp / "ref"))
-        js = jrun.run(jm.init_state(), days=DAYS)
-        tm = _port()
-        trun = Run(tm, str(tmp / "port"))
-        # each segment's end tracers, for the convection extent's records
-        ends, inner = [], tm.run
-
-        def segment(state, n, eager=False):
-            state = inner(state, n, eager)
-            ends.append(state.ocean.t.numpy().copy())
-            return state
-
-        tm.run = segment
-        try:
-            ts = trun.run(tm.init_state(), days=DAYS)
-        finally:
-            del tm.run
-
-        # split: 20 days, then a new Run resumed from its restart
-        m2 = _port()
-        Run(m2, str(tmp / "split")).run(m2.init_state(), days=DAYS / 2)
-        m3 = _port()
-        run3 = Run(m3, str(tmp / "split"))
-        s3 = run3.load(m3.init_state())
-        split_days = run3.tm.days
-        s3 = run3.run(s3, days=DAYS / 2)
-        return dict(tmp=tmp, jm=jm, js=js, jrun=jrun, tm=tm, ts=ts,
-                    trun=trun, s3=s3, split_days=split_days, ends=ends)
+        ts = trun.run(tm.init_state(), days=DAYS)
     finally:
-        torch.set_num_threads(threads)
+        del tm.run
+
+    # split: 20 days, then a new Run resumed from its restart
+    m2 = _port()
+    Run(m2, str(tmp / "split")).run(m2.init_state(), days=DAYS / 2)
+    m3 = _port()
+    run3 = Run(m3, str(tmp / "split"))
+    s3 = run3.load(m3.init_state())
+    split_days = run3.tm.days
+    s3 = run3.run(s3, days=DAYS / 2)
+    return dict(tmp=tmp, jm=jm, js=js, jrun=jrun, tm=tm, ts=ts,
+                trun=trun, s3=s3, split_days=split_days, ends=ends)
 
 
 def test_tsi_rows_match_reference(runs):
@@ -347,12 +343,7 @@ def test_restarts_resume_across_packages(runs, tmp_path):
     assert (trun.tm.itt, trun.tm.days) == (jrun.tm.itt, jrun.tm.days) \
         == (int(runs["js"].ocean.itt), DAYS)
     assert tm.relyr == jm.relyr == DAYS / 360.0
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        ts = trun.run(ts, nseg=1)
-    finally:
-        torch.set_num_threads(threads)
+    ts = trun.run(ts, nseg=1)
     js = jrun.run(js, nseg=1)
     _, rows = _rows(tmp_path / "port" / "tsi.csv")
     _, ref_rows = _rows(tmp_path / "ref" / "tsi.csv")
@@ -381,15 +372,10 @@ def test_nconv_abort(tmp_path):
 
 
 def test_cli_runs_the_earth_configuration_on_the_cpu(tmp_path, capsys):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        code = run_production.main([
-            "--earth", "--from-restart", str(RESTART), "--device", "cpu",
-            "--years", str(5.0 / 360.0), "--tsiint", "5",
-            "--outdir", str(tmp_path)])
-    finally:
-        torch.set_num_threads(threads)
+    code = run_production.main([
+        "--earth", "--from-restart", str(RESTART), "--device", "cpu",
+        "--years", str(5.0 / 360.0), "--tsiint", "5",
+        "--outdir", str(tmp_path)])
     assert code == 0
     out = capsys.readouterr().out
     assert "seeded from" in out and "model years" in out

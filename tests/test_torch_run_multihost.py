@@ -21,6 +21,7 @@ import pytest
 
 from uvic_tpu_torch import run_multihost
 from uvic_tpu_torch.entry import dryrun_multichip
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 KEYS = {"processes", "global_devices", "local_devices", "mesh", "steps",
         "ms_per_step", "checksum_t0", "checksum_ke", "nan"}
@@ -45,8 +46,9 @@ def test_cpu_mesh_writes_the_reference_keys(runs):
     r = runs["cpu4"]
     assert set(r) == KEYS
     assert r["mesh"] == [2, 2]              # the JAX script's choice for 4
+    # one launcher (a JAX process) that spawned four ranks (its devices)
     assert (r["processes"], r["global_devices"], r["local_devices"],
-            r["steps"]) == (4, 4, 1, 2)
+            r["steps"]) == (1, 4, 4, 2)
     assert r["nan"] is False and r["ms_per_step"] > 0
 
 

@@ -36,6 +36,7 @@ from uvic_tpu_torch.convert import (ocean_state_from_numpy,
                                     ocean_state_to_numpy)
 from uvic_tpu_torch.models.ocean.model import make_forcing as t_make_forcing
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = dict(isopycmix=True, gent_mcwilliams=True, tidal_kv=True,
                 gthflx=True, aniso_visc=True, aniso_zonal=True, nmix=3)

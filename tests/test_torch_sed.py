@@ -19,6 +19,7 @@ from uvic_tpu.models.sed import sediment as jsed
 
 from uvic_tpu_torch.models.sed import porewater as tpw
 from uvic_tpu_torch.models.sed import sediment as tsed
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 TOL = 1e-9
 SHAPE = (3, 4)
@@ -85,14 +86,6 @@ def _states(seed):
     st = _pw_state(seed)
     jst, tst = _both(st)
     return jpw.PoreWaterState(**jst), tpw.PoreWaterState(**tst)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_chemistry_matches():

@@ -44,7 +44,8 @@ from uvic_tpu_torch.parallel.launch import spawn
 from test_torch_coupled_options import initial_t
 from torch_rank_fns import (call_all, coupled_model, coupled_numpy,
                             coupled_run)
-from torch_shard_runs import BASE, SPAWN_S, one_thread, rel_gap
+from torch_shard_runs import BASE, SPAWN_S, rel_gap
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SHAPE = (2, 2)
 TOL_PORT = 1e-12
@@ -101,19 +102,18 @@ def case(option):
 def port_run(cfg, t0=None, nseg=1, transient=False, awind_clim=None):
     """The port's unsharded segments on the generic tracer step: the
     records of the last, and each segment's counters and inputs."""
-    with one_thread():
-        m, state = coupled_model(cfg, "cpu", t0, transient, awind_clim)
-        m.ocean.fused_tracer = False
-        cg_iters, trips, inputs = [], [], []
-        for _ in range(nseg):
-            state = m.run(state, 1)
-            cg_iters.append(m.seg_cg_iters.numpy())
-            trips.append(m.seg_trips.numpy())
-            # the inputs the segment ran on (relyr has moved on since)
-            inputs.append({k: v.numpy().copy()
-                           for k, v in m.segment_inputs().items()})
-        return dict(state=coupled_numpy(state, m.last_tavg, m.last_forcing),
-                    cg_iters=cg_iters, trips=trips, inputs=inputs)
+    m, state = coupled_model(cfg, "cpu", t0, transient, awind_clim)
+    m.ocean.fused_tracer = False
+    cg_iters, trips, inputs = [], [], []
+    for _ in range(nseg):
+        state = m.run(state, 1)
+        cg_iters.append(m.seg_cg_iters.numpy())
+        trips.append(m.seg_trips.numpy())
+        # the inputs the segment ran on (relyr has moved on since)
+        inputs.append({k: v.numpy().copy()
+                       for k, v in m.segment_inputs().items()})
+    return dict(state=coupled_numpy(state, m.last_tavg, m.last_forcing),
+                cg_iters=cg_iters, trips=trips, inputs=inputs)
 
 
 @pytest.fixture(scope="module")

@@ -29,11 +29,11 @@ from uvic_tpu_torch.convert import (ocean_state_from_numpy,
 from uvic_tpu_torch.diag.conservation import ConservationAudit
 from uvic_tpu_torch.diag.tsi import TsiDiagnostics
 from uvic_tpu_torch.models.ocean.model import make_ocean
-from uvic_tpu_torch.parallel.launch import spawn
 from uvic_tpu_torch.parallel.mesh import make_mesh
 
-from torch_rank_fns import call_all, coupled_roundtrip, diag_rows
-from torch_shard_runs import BASE, SPAWN_S, one_thread, t_forcing, wind
+from torch_rank_fns import coupled_roundtrip, diag_rows
+from torch_shard_runs import BASE, spawn_meshes, t_forcing, wind
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 MESHES = ((2, 4), (1, 8))
 
@@ -44,16 +44,15 @@ def tsi_case():
     cfg = small_config(imt=40, jmt=34, km=8)
     cfg = cfg.replace(ocean=dataclasses.replace(
         cfg.ocean, isopycmix=False, gent_mcwilliams=False, **BASE))
-    with one_thread():
-        m = make_ocean(cfg, device="cpu")
-        g = m.params.grid
-        t0 = np.zeros((2, g.km, g.jmt, g.imt))
-        t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None]
-        t0 *= np.asarray(m.params.topo.tmask)
-        f = t_forcing(wind(g, m.nt))
-        s = m.step(m.init_state(t0), f, leapfrog=False)
-        for _ in range(4):
-            s = m.step(s, f, leapfrog=True)
+    m = make_ocean(cfg, device="cpu")
+    g = m.params.grid
+    t0 = np.zeros((2, g.km, g.jmt, g.imt))
+    t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None]
+    t0 *= np.asarray(m.params.topo.tmask)
+    f = t_forcing(wind(g, m.nt))
+    s = m.step(m.init_state(t0), f, leapfrog=False)
+    for _ in range(4):
+        s = m.step(s, f, leapfrog=True)
     rng = np.random.default_rng(5)
     atm_ice = (rng.standard_normal((2, g.jmt, g.imt)),
                rng.random((g.jmt, g.imt)), rng.random((g.jmt, g.imt)))
@@ -88,13 +87,14 @@ def runs():
     audit_cfg, audit_state = audit_case()
     out = dict(tsi=unsharded(tsi_cfg, tsi_state, atm_ice)[0],
                audit=unsharded(audit_cfg, audit_state)[1])
+    calls = {}
     for shape in MESHES:
-        calls = [(diag_rows, dict(cfg=tsi_cfg, state=tsi_state,
-                                  atm_ice=atm_ice)),
-                 (diag_rows, dict(cfg=audit_cfg, state=audit_state))]
+        calls[shape] = [(diag_rows, dict(cfg=tsi_cfg, state=tsi_state,
+                                         atm_ice=atm_ice)),
+                        (diag_rows, dict(cfg=audit_cfg, state=audit_state))]
         if shape == (2, 4):
-            calls.append((coupled_roundtrip, dict(cfg=tsi_cfg)))
-        out[shape] = spawn(call_all, shape, "gloo", "cpu", SPAWN_S, calls)
+            calls[shape].append((coupled_roundtrip, dict(cfg=tsi_cfg)))
+    out.update(spawn_meshes(calls))
     return out
 
 

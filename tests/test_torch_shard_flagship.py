@@ -20,23 +20,35 @@ from uvic_tpu_torch.parallel.shard_step import ShardedOceanStep
 
 from torch_shard_runs import (assert_jax_tolerances, assert_port_equal,
                               assert_replicated, configs, jax_steps, job,
-                              port_steps, setup, sharded)
+                              port_steps, setup, sharded_meshes)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SCHEDULE = (True, True, True)
 CASES = {"flagship": (dict(flagship=True), (2, 4)),
          "mobi": (dict(mobi=True), (2, 2))}
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def run(request):
-    kw, shape = CASES[request.param]
-    jc, tc = configs({}, **kw)
-    jm, primed, forcing = setup(jc, tc)
-    return dict(name=request.param, tc=tc, shape=shape,
-                jax=jax_steps(jm, primed, forcing, SCHEDULE),
-                port=port_steps(tc, primed, forcing, SCHEDULE),
-                sharded=sharded(shape, [job(tc, primed, forcing,
-                                            SCHEDULE)])[0])
+@pytest.fixture(scope="module")
+def runs():
+    """Both cases' references, and their sharded runs in one spawn of
+    eight ranks (the (2, 2) mesh on the first four)."""
+    out, jobs = {}, {}
+    for name, (kw, shape) in sorted(CASES.items()):
+        jc, tc = configs({}, **kw)
+        jm, primed, forcing = setup(jc, tc)
+        out[name] = dict(name=name, tc=tc, shape=shape,
+                         jax=jax_steps(jm, primed, forcing, SCHEDULE),
+                         port=port_steps(tc, primed, forcing, SCHEDULE))
+        jobs[shape] = [job(tc, primed, forcing, SCHEDULE)]
+    results = sharded_meshes(jobs)
+    for r in out.values():
+        r["sharded"], = results[r["shape"]]
+    return out
+
+
+@pytest.fixture(params=sorted(CASES))
+def run(request, runs):
+    return runs[request.param]
 
 
 def test_sharded_matches_jax(run):

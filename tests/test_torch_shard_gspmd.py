@@ -34,6 +34,7 @@ from uvic_tpu.parallel.mesh import make_mesh, shard_pytree, shard_step
 
 from torch_shard_runs import (assert_replicated, configs, j_forcing,
                               j_state_dict, job, setup, sharded)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SHAPE = (2, 2)
 SCHEDULE = (False, True, True)

@@ -49,7 +49,9 @@ from uvic_tpu_torch.parallel.shard_step import ShardedOceanStep
 from torch_shard_runs import (BASE, TOL_JAX, assert_jax_tolerances,
                               assert_port_equal, assert_replicated, configs,
                               j_forcing, j_state_dict, jax_steps, job,
-                              port_setup, port_steps, setup, sharded, wind)
+                              port_setup, port_steps, setup, sharded_meshes,
+                              wind)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SHAPE = (2, 2)
 SCHEDULE = (False, True, True)
@@ -155,8 +157,8 @@ def _case(name, ocean, grid):
 @pytest.fixture(scope="module")
 def runs():
     """Every computed option: the port's unsharded and sharded runs; the
-    polar-drag case in both packages, sharded and not.  One spawn a
-    mesh."""
+    polar-drag case in both packages, sharded and not.  One spawn of
+    eight ranks for every mesh."""
     out, jobs = {}, []
     for name, (ocean, grid) in COMPUTED.items():
         tc, primed, forcing = _case(name, ocean, grid)
@@ -179,17 +181,19 @@ def runs():
     out["polar_drag"] = polar
     jobs.append(job(tc, primed, forcing, POLAR_SCHEDULE))
 
-    for name, res in zip(list(COMPUTED) + ["polar_drag"],
-                         sharded(SHAPE, jobs)):
-        out[name]["sharded"] = res
-
     # walls on meshes where a rank has a wall on one side only
+    by_shape = {SHAPE: jobs}
     for shape, imt in WALL_MESHES.items():
         tc, primed, forcing = _case("walls", {}, dict(cyclic=False,
                                                       imt=imt))
-        res, = sharded(shape, [job(tc, primed, forcing, SCHEDULE)])
+        by_shape[shape] = [job(tc, primed, forcing, SCHEDULE)]
         out[_walls_name(shape)] = dict(
-            port=port_steps(tc, primed, forcing, SCHEDULE), sharded=res)
+            port=port_steps(tc, primed, forcing, SCHEDULE))
+    results = sharded_meshes(by_shape)
+    for name, res in zip(list(COMPUTED) + ["polar_drag"], results[SHAPE]):
+        out[name]["sharded"] = res
+    for shape in WALL_MESHES:
+        out[_walls_name(shape)]["sharded"], = results[shape]
     return out
 
 

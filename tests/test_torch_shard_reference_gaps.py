@@ -24,6 +24,7 @@ from uvic_tpu.parallel.shard_step import ShardedOceanStep as JStep
 
 from torch_shard_runs import (assert_jax_tolerances, configs, j_forcing,
                               j_state_dict, jax_steps, setup)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SHAPE = (2, 2)
 SCHEDULE = (True,)         # one leapfrog step shows the gap

@@ -5,7 +5,8 @@ package's unsharded segment, the twin of
 port's own unsharded segment.
 
 The ranks are gloo CPU processes (``launch.spawn``), one block of the
-mesh each, in float64; each mesh takes one spawn for all its cases.
+mesh each, in float64; one spawn of eight ranks runs every case (the
+(2, 2) mesh on the first four).
 
 - ``small_config`` km 8 with the reference test's ocean settings
   (isopycnal mixing off, dtts 43,200 s, dtuv and dtsf 1,800 s, tolrsf 1,
@@ -46,12 +47,11 @@ from uvic_tpu_torch.config import mobi_full, small_config
 from uvic_tpu_torch.convert import ocean_state_from_numpy
 from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.models.ocean.model import make_ocean
-from uvic_tpu_torch.parallel.launch import spawn
 
-from torch_rank_fns import (call_all, coupled_numpy, coupled_segment,
-                            scan_mixing_step)
-from torch_shard_runs import (BASE, SPAWN_S, one_thread, port_setup,
-                              rel_gap, t_forcing, wind)
+from torch_rank_fns import coupled_numpy, coupled_segment, scan_mixing_step
+from torch_shard_runs import (BASE, port_setup, rel_gap,
+                              spawn_meshes, t_forcing, wind)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 # test_sharding.py's ocean settings
 OCEAN = dict(BASE, isopycmix=False, gent_mcwilliams=False)
@@ -80,16 +80,15 @@ def mobi_cfg():
 
 def port_segment(cfg, itt=None):
     """The port's unsharded segment on the generic tracer step."""
-    with one_thread():
-        m = CoupledModel(cfg, device="cpu")
-        m.ocean.fused_tracer = False
-        state = m.init_state()
-        if itt is not None:
-            state.ocean.itt = itt
-        out = m.run_segment(state)
-        return dict(state=coupled_numpy(out, m.last_tavg, m.last_forcing),
-                    cg_iters=m.seg_cg_iters.numpy(),
-                    trips=m.seg_trips.numpy())
+    m = CoupledModel(cfg, device="cpu")
+    m.ocean.fused_tracer = False
+    state = m.init_state()
+    if itt is not None:
+        state.ocean.itt = itt
+    out = m.run_segment(state)
+    return dict(state=coupled_numpy(out, m.last_tavg, m.last_forcing),
+                cg_iters=m.seg_cg_iters.numpy(),
+                trips=m.seg_trips.numpy())
 
 
 def jax_segment(jmt, imt):
@@ -111,17 +110,17 @@ def scan_case():
     primed = port_setup(cfg, forcing)
     m.fused_tracer = False
     refs = {}
-    with one_thread():
-        for scan in (True, False):
-            s = m._step(ocean_state_from_numpy(primed, "cpu"),
-                        t_forcing(forcing), leapfrog=False, scan=scan)
-            refs[scan] = s.t.numpy()
+    for scan in (True, False):
+        s = m._step(ocean_state_from_numpy(primed, "cpu"),
+                    t_forcing(forcing), leapfrog=False, scan=scan)
+        refs[scan] = s.t.numpy()
     return dict(cfg=cfg, state=primed, forcing=forcing), refs
 
 
 @pytest.fixture(scope="module")
 def runs():
-    """The references and the sharded runs: one spawn a mesh."""
+    """The references and the sharded runs: one spawn for both
+    meshes."""
     out = {}
     for name, (shape, jmt, imt) in SEGMENTS.items():
         out[name] = dict(jax=jax_segment(jmt, imt),
@@ -136,8 +135,7 @@ def runs():
                  cfg=plain_cfg(small_config, 34, 40))),
                  (coupled_segment, dict(cfg=mobi_cfg(), itt=MOBI_ITT)),
                  (scan_mixing_step, scan_job)]}
-    res = {shape: spawn(call_all, shape, "gloo", "cpu", SPAWN_S, c)
-           for shape, c in calls.items()}
+    res = spawn_meshes(calls)
     for name, n, shape in (("plain_2x4", 0, (2, 4)),
                            ("plain_2x2", 0, (2, 2)), ("mobi", 1, (2, 2)),
                            ("scan", 2, (2, 2))):

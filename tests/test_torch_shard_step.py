@@ -3,7 +3,8 @@ the JAX package's unsharded step, the twins of
 ``tests/test_shardmap_step.py``.
 
 Each case's ranks are gloo CPU processes (``launch.spawn``), one block
-of the mesh each, in float64; every mesh of the file takes one spawn.
+of the mesh each, in float64; one spawn of eight ranks runs every mesh
+of the file (the (2, 2) mesh on the first four).
 The gathered state is held against ``uvic_tpu``'s ``_step`` at that
 file's tolerances, and against the port's own unsharded ``_step`` on the
 same tracer path (the generic step) within 1e-12 of each field's scale
@@ -28,7 +29,8 @@ from uvic_tpu_torch.parallel.shard_step import ShardedOceanStep
 
 from torch_shard_runs import (assert_jax_tolerances, assert_port_equal,
                               assert_replicated, configs, jax_steps, job,
-                              port_steps, setup, sharded)
+                              port_steps, setup, sharded_meshes)
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 # name: (isopycnal, mesh, halo, jmt, imt, schedule); test_shardmap_step's
 # cases, its forward step and its standard grid on both meshes
@@ -64,8 +66,10 @@ def runs():
         out[name] = dict(refs[key + (schedule,)])
         by_mesh.setdefault(shape, []).append(
             (name, job(tc, primed, forcing, schedule, halo)))
+    results = sharded_meshes({shape: [j for _, j in jobs]
+                              for shape, jobs in by_mesh.items()})
     for shape, jobs in by_mesh.items():
-        for (name, _), res in zip(jobs, sharded(shape, [j for _, j in jobs])):
+        for (name, _), res in zip(jobs, results[shape]):
             out[name]["sharded"] = res
     return out
 

@@ -29,7 +29,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from uvic_tpu.config import earth_config as j_earth_config
 from uvic_tpu.config import small_config as j_small_config
@@ -43,6 +42,7 @@ from uvic_tpu_torch.convert import (coupled_state_from_numpy,
                                     coupled_state_to_numpy)
 from uvic_tpu_torch.coupler.driver import CoupledModel
 from uvic_tpu_torch.io.restart import load_restart
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = ROOT / "scripts" / "spinup_earth.py"
@@ -92,16 +92,6 @@ def _models(accel):
         CoupledModel(tc, topo_kind="earth", device="cpu")
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    # a segment is ~10^5 small operations, which a thread pool slows
-    # down when other test processes share the cores
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _weights(jm):
     """The script's area weights (its ``main``)."""
     g = jm.grid
@@ -129,7 +119,7 @@ def _assert_rows_close(got, ref, rtol, scales=None):
                                        err_msg=k)
 
 
-def test_yearly_diags_matches_script(script, one_thread, monkeypatch):
+def test_yearly_diags_matches_script(script, monkeypatch):
     jm, tm = _models(4.0)
     js = jm.init_state()
     ts = coupled_state_from_numpy(_flatten_state(js), tm.init_state())
@@ -215,7 +205,7 @@ def _script_year(script, jm, state, seg_per_year, accel, audit, E_prev):
 
 
 @pytest.mark.parametrize("accel", [1.0, 4.0])
-def test_year_loop_matches_script(accel, script, one_thread, monkeypatch):
+def test_year_loop_matches_script(accel, script, monkeypatch):
     monkeypatch.setattr(script, "round", _unrounded, raising=False)
     monkeypatch.setattr(spinup, "round", _unrounded, raising=False)
     jm, tm = _models(accel)
@@ -242,7 +232,7 @@ def test_year_loop_matches_script(accel, script, one_thread, monkeypatch):
         assert float(np.abs(got[k] - want[k]).max()) <= RTOL * scale, k
 
 
-def test_main_writes_restarts_and_resumes(one_thread, monkeypatch,
+def test_main_writes_restarts_and_resumes(monkeypatch,
                                           tmp_path, capsys):
     """``main`` on the small earth configuration with one-segment years:
     two years in one run against one year and a ``--resume`` of one
@@ -288,7 +278,7 @@ def test_main_writes_restarts_and_resumes(one_thread, monkeypatch,
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_non_finite_year_ends_the_run(one_thread, monkeypatch):
+def test_non_finite_year_ends_the_run(monkeypatch):
     _, tc = _configs(1.0)
     tm = CoupledModel(tc, topo_kind="earth", device="cpu")
     state = tm.init_state()

@@ -30,6 +30,7 @@ from uvic_tpu_torch.convert import time_interp_field_from_numpy
 from uvic_tpu_torch.core.grid import make_grid as t_make_grid
 from uvic_tpu_torch.io import bcest as t_bcest
 from uvic_tpu_torch.io import timeforce as t_tf
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-12
 # fractional years: a dense sweep over three years (every record, the

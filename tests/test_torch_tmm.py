@@ -43,19 +43,10 @@ from uvic_tpu_torch.models.ocean import kernels as t_kernels
 from uvic_tpu_torch.models.ocean.model import make_forcing as t_make_forcing
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
 from uvic_tpu_torch.ops.stencil import setbcx
+from torch_threads import torch_one_thread  # noqa: F401  (autouse)
 
 SPACING = (3, 4, 4)   # small grid: 32 physical columns, centered adv
 RTOL = 1e-9
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the steps are many small operations, which a
-    thread pool slows down when other test processes share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(got, ref, rtol=RTOL, label=""):

@@ -9,6 +9,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed
 
 from uvic_tpu_torch.convert import ocean_state_from_numpy
 from uvic_tpu_torch.coupler.driver import CoupledModel, pack_state
@@ -21,8 +22,7 @@ from uvic_tpu_torch.parallel.mesh import (gather_coupled, gather_pytree,
                                           shard_pytree)
 from uvic_tpu_torch.parallel.shard_segment import (ShardedCoupledModel,
                                                    replicated_digest)
-from uvic_tpu_torch.parallel.shard_step import (ShardedOceanStep,
-                                                run_sharded)
+from uvic_tpu_torch.parallel.shard_step import ShardedOceanStep
 
 
 def block(a, mesh):
@@ -64,17 +64,23 @@ def halo_rounds(mesh, exchanges, packs, fields, jmt, imt, bad_shape):
     return out
 
 
-def run_sharded_jobs(mesh, jobs):
-    """Several ``run_sharded`` runs on one set of ranks (one process
-    start and one process group for them all): ``jobs`` is a list of
-    dicts of its keyword arguments; returns the list of their results."""
-    return [run_sharded(mesh, **job) for job in jobs]
-
-
 def call_all(mesh, calls):
     """Several rank functions on one set of ranks: ``calls`` is a list
     of (function, keyword arguments); returns the list of results."""
     return [fn(mesh, **kw) for fn, kw in calls]
+
+
+def call_on_meshes(mesh, meshes):
+    """Several meshes on one set of ranks: ``meshes`` is a list of
+    (shape, calls); for each, ``make_mesh(shape)`` over the world's first
+    ny*nx ranks (None on the others, which skip its calls) and
+    ``call_all`` on it.  Returns one entry a shape: the calls' results,
+    None on a rank off that mesh."""
+    out = []
+    for shape, calls in meshes:
+        m = make_mesh(shape, device=mesh.device)
+        out.append(None if m is None else call_all(m, calls))
+    return out
 
 
 def scan_mixing_step(mesh, cfg, state, forcing):
@@ -228,3 +234,44 @@ def hang_on(mesh, rank):
         time.sleep(3600)
     return mesh.rank
 
+
+
+def raise_after_peers_die(mesh, rank):
+    """The launcher's blame race, forced: ``rank`` closes its connections
+    at once, so that its peers, waiting on it in a gather, die of the
+    transport first; it raises only a second later."""
+    if mesh.rank == rank:
+        torch.distributed.destroy_process_group()
+        time.sleep(1.0)
+        raise ValueError(f"rank {rank} raises on purpose")
+    mesh.all_gather(torch.zeros(1))
+    return mesh.rank
+
+
+def part_of_the_world(mesh, shape, big, field):
+    """On a world larger than ``shape``: ``make_mesh(shape)``, None on
+    the ranks beyond it; on its ranks, a gather, an exchange with the x
+    neighbours and ``gather_pytree(..., root=0)`` of ``field`` through
+    the mesh's group; the error of ``make_mesh(big)``.  Every rank then
+    waits for the others at a barrier of the world."""
+    m = make_mesh(shape, device="cpu")
+    out = dict(idle=m is None)
+    if m is not None:
+        out["rank"] = m.rank
+        out["gathered"] = [int(t) for t in
+                           m.all_gather(torch.tensor([m.rank]))]
+        east, west = m.x_neighbours()
+        got = m.exchange([(torch.tensor([10 + m.rank]), east, 7)],
+                         [(torch.tensor([0]), west, 7)])
+        out["from_west"] = int(got[0])
+        jmt, imt = field.shape
+        cut = shard_pytree({"a": torch.as_tensor(field)}, m, jmt, imt)
+        root = gather_pytree(cut, m, jmt, imt, root=0)
+        out["root"] = None if root is None else root["a"].numpy()
+    try:
+        make_mesh(big, device="cpu")
+        out["big"] = None
+    except ValueError as e:
+        out["big"] = str(e)
+    torch.distributed.barrier()
+    return out

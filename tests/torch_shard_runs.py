@@ -10,7 +10,6 @@ from that primed state (``uvic_tpu_torch.parallel.shard_step.
 run_sharded`` on gloo CPU ranks through ``launch.spawn``).
 """
 
-import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -32,7 +31,9 @@ from uvic_tpu_torch.models.ocean.model import make_forcing as t_make_forcing
 from uvic_tpu_torch.models.ocean.model import make_ocean as t_make_ocean
 from uvic_tpu_torch.parallel.launch import spawn
 
-from torch_rank_fns import run_sharded_jobs
+from uvic_tpu_torch.parallel.shard_step import run_sharded
+
+from torch_rank_fns import call_on_meshes
 
 BASE = dict(dtts=43200.0, dtuv=1800.0, dtsf=1800.0, tolrsf=1e0,
             mxscan=2000)
@@ -105,28 +106,10 @@ def jax_steps(jm, primed, forcing, schedule):
     return j_state_dict(s)
 
 
-@contextlib.contextmanager
-def one_thread():
-    """PyTorch on one thread: the suite's workers share the host's cores
-    with the spawned ranks, and more threads buy these small steps
-    little (the flagship's three steps 7.0 s on eight, 9.9 s on one)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def port_steps(tc, primed, forcing, schedule):
     """The port's unsharded ``step`` over ``schedule`` (``_step``; a
     mixing step of an ``eb`` model Euler-backward), on the tracer path
     the sharded core takes (the generic step, ``fused_tracer`` off)."""
-    with one_thread():
-        return _port_steps(tc, primed, forcing, schedule)
-
-
-def _port_steps(tc, primed, forcing, schedule):
     tm = t_make_ocean(tc, device="cpu")
     tm.fused_tracer = False
     s = ocean_state_from_numpy(primed, "cpu")
@@ -145,14 +128,13 @@ def t_forcing(forcing):
 def port_setup(tc, forcing):
     """The port's state primed by one forward step from the exponential
     profile, in float64 on the CPU, as NumPy."""
-    with one_thread():
-        tm = t_make_ocean(tc, device="cpu")
-        g = tm.params.grid
-        t0 = np.zeros((2, g.km, g.jmt, g.imt))
-        t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None]
-        t0 *= np.asarray(tm.params.topo.tmask)
-        s = tm.step(tm.init_state(t0), t_forcing(forcing), leapfrog=False)
-        return ocean_state_to_numpy(s)
+    tm = t_make_ocean(tc, device="cpu")
+    g = tm.params.grid
+    t0 = np.zeros((2, g.km, g.jmt, g.imt))
+    t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None]
+    t0 *= np.asarray(tm.params.topo.tmask)
+    s = tm.step(tm.init_state(t0), t_forcing(forcing), leapfrog=False)
+    return ocean_state_to_numpy(s)
 
 
 def wind(grid, nt):
@@ -163,18 +145,42 @@ def wind(grid, nt):
                 stf=np.zeros((nt, grid.jmt, grid.imt)))
 
 
-def sharded(shape, jobs):
-    """``run_sharded`` jobs on gloo CPU ranks of a ``shape`` mesh: each
-    job's rank-0 result, with ``ranks_barotropic`` and ``ranks_blocks``
-    every rank's replicated fields and blocks."""
-    res = spawn(run_sharded_jobs, shape, "gloo", "cpu", SPAWN_S, jobs)
-    out = []
-    for n in range(len(jobs)):
-        r = dict(res[0][n])
-        r["ranks_barotropic"] = [rank[n]["barotropic"] for rank in res]
-        r["ranks_blocks"] = [rank[n]["blocks"] for rank in res]
-        out.append(r)
+def spawn_meshes(calls_by_shape):
+    """``call_all`` calls on several meshes of gloo CPU ranks with one
+    spawn, of the largest mesh's ranks (a smaller mesh takes the first
+    of them): ``{shape: calls}`` -> ``{shape: [each of its ranks'
+    results]}``."""
+    shapes = list(calls_by_shape)
+    world = max(shapes, key=lambda s: s[0] * s[1])
+    res = spawn(call_on_meshes, world, "gloo", "cpu",
+                SPAWN_S * len(shapes),
+                [(s, calls_by_shape[s]) for s in shapes])
+    return {s: [rank[i] for rank in res[:s[0] * s[1]]]
+            for i, s in enumerate(shapes)}
+
+
+def sharded_meshes(jobs_by_shape):
+    """``run_sharded`` jobs on meshes of gloo CPU ranks, one spawn for
+    them all: ``{shape: jobs}`` -> ``{shape: each job's rank-0 result}``,
+    with ``ranks_barotropic`` and ``ranks_blocks`` every rank's
+    replicated fields and blocks."""
+    ranks = spawn_meshes({s: [(run_sharded, j) for j in jobs]
+                          for s, jobs in jobs_by_shape.items()})
+    out = {}
+    for s, jobs in jobs_by_shape.items():
+        res = ranks[s]
+        out[s] = []
+        for n in range(len(jobs)):
+            r = dict(res[0][n])
+            r["ranks_barotropic"] = [rank[n]["barotropic"] for rank in res]
+            r["ranks_blocks"] = [rank[n]["blocks"] for rank in res]
+            out[s].append(r)
     return out
+
+
+def sharded(shape, jobs):
+    """``sharded_meshes`` of one mesh: each job's result."""
+    return sharded_meshes({shape: jobs})[shape]
 
 
 def job(tc, primed, forcing, schedule, halo=None):

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All sources in ``csrc/`` go through ONE plain ``nvcc`` call into one
+Each source in ``csrc/`` is compiled by its own plain ``nvcc``
+process, all started together, and the objects are linked into one
 shared library with a C interface (no PyTorch headers, so the build
 takes seconds), loaded with ``ctypes``.  The library lives in
 ``_build/`` (ignored by git) under a name keyed on a hash of the
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,11 +65,24 @@ class _Library:
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
             BUILD.mkdir(exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + self.build_log)
+            objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(srcs, objs)]
+            self.build_log = "".join(p.communicate()[0] for p in procs)
+            try:
+                if any(p.returncode for p in procs):
+                    raise RuntimeError("nvcc failed:\n" + self.build_log)
+                link = subprocess.run(
+                    [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                    capture_output=True, text=True)
+                self.build_log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    raise RuntimeError("nvcc failed:\n" + self.build_log)
+            finally:
+                for o in objs:
+                    o.unlink(missing_ok=True)
             os.replace(tmp, so)
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))

@@ -12,8 +12,14 @@ return values come back in rank order.  Each rank runs its host work
 threads each on an eight-core host spend their time spinning.
 
 A rank that raises fails the whole run: the others are killed and
-``spawn`` raises ``RankFailed`` with that rank's traceback.  A run that
-outlives ``timeout_s`` is killed and raises ``TimeoutError``.
+``spawn`` raises ``RankFailed`` with that rank's traceback.  No rank
+enters ``fn`` before every rank has connected, and the rank blamed is
+one whose own code failed: a rank that raises makes its peers die of
+the transport (``Connection closed by peer``), sometimes before it has
+exited itself, so on a failure ``spawn`` waits up to
+``FAILURE_GRACE_S`` for another rank's traceback and names a rank that
+died of the transport only if none other failed.  A run that outlives
+``timeout_s`` is killed and raises ``TimeoutError``.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import multiprocessing
 import multiprocessing.connection
 import os
 import pickle
+import re
 import tempfile
 import time
 import traceback
@@ -32,6 +39,13 @@ from .. import resolve_device
 
 _ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
                "MKL_NUM_THREADS": "1"}
+
+
+# seconds a failure waits for the other ranks' tracebacks
+FAILURE_GRACE_S = 5.0
+# what a rank's traceback says when it died because a peer went away
+TRANSPORT = re.compile(r"Connection closed by peer|Connection reset by "
+                       r"peer|connectFullMesh|Broken pipe")
 
 
 class RankFailed(RuntimeError):
@@ -55,15 +69,21 @@ def _entry(rank, world, mesh_shape, backend, device, tmp, timeout_s):
             world_size=world, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
+            # every rank has connected before one can fail in fn
+            dist.barrier()
             mesh = make_mesh(mesh_shape, device=device)
             out = fn(mesh, *args)
         finally:
-            dist.destroy_process_group()
+            if dist.is_initialized():
+                dist.destroy_process_group()
         with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     except BaseException:
-        with open(os.path.join(tmp, f"error_{rank}.txt"), "w") as f:
+        # written whole, then renamed: the parent may read it at once
+        path = os.path.join(tmp, f"error_{rank}.txt")
+        with open(path + ".part", "w") as f:
             f.write(traceback.format_exc())
+        os.replace(path + ".part", path)
         raise
 
 
@@ -112,8 +132,8 @@ def spawn(fn, mesh_shape, backend: str = "gloo", device=None,
 
 
 def _join(procs, deadline, tmp, timeout_s):
-    """Wait for every rank; raise at the first failure or at the
-    deadline."""
+    """Wait for every rank; raise at the first failure (``_blame``) or at
+    the deadline."""
     waiting = {p.sentinel: p for p in procs}
     while waiting:
         left = deadline - time.monotonic()
@@ -125,11 +145,34 @@ def _join(procs, deadline, tmp, timeout_s):
             p = waiting.pop(s)
             p.join()
             if p.exitcode != 0:
-                rank = int(p.name[4:])
-                path = os.path.join(tmp, f"error_{rank}.txt")
-                text = ""
-                if os.path.exists(path):
-                    with open(path) as f:
-                        text = f.read()
-                raise RankFailed(f"rank {rank} exited with code "
-                                 f"{p.exitcode}\n{text}")
+                raise _blame(procs, p, tmp)
+
+
+def _error_text(tmp, p):
+    """The traceback that the rank of process ``p`` wrote, or None."""
+    path = os.path.join(tmp, f"error_{int(p.name[4:])}.txt")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
+
+
+def _blame(procs, first, tmp):
+    """``RankFailed`` for the rank whose own code failed: ``first`` (the
+    first rank seen to exit non-zero) unless its traceback is the
+    transport's; then the first other rank whose traceback is not,
+    waited for up to ``FAILURE_GRACE_S``; else ``first``."""
+    order = [first] + [p for p in procs if p is not first]
+    end = time.monotonic() + FAILURE_GRACE_S
+    while True:
+        texts = [(p, _error_text(tmp, p)) for p in order]
+        own = [(p, t) for p, t in texts
+               if t is not None and not TRANSPORT.search(t)]
+        if own or time.monotonic() >= end \
+                or not any(p.is_alive() for p in procs):
+            break
+        time.sleep(0.05)
+    p, text = own[0] if own else texts[0]
+    p.join(FAILURE_GRACE_S)
+    return RankFailed(f"rank {int(p.name[4:])} exited with code "
+                      f"{p.exitcode}\n{text or ''}")

@@ -17,6 +17,10 @@ transport of every message (``RankMesh.transport``):
   card, where NCCL refuses two ranks on one GPU.
 
 A ``(1, 1)`` mesh needs no process group: every exchange stays local.
+A mesh may use part of the process group (``make_mesh``): on a world
+larger than ny*nx, ranks 0..ny*nx-1 form the mesh on a group of their
+own, and the others idle, as the reference's run lays a (2, 3) mesh over
+8 devices and 6 of them take part.
 
 The reference lets XLA partition any step function over its mesh
 (``mesh.shard_step``, GSPMD); PyTorch has no counterpart that would
@@ -46,10 +50,12 @@ class RankMesh:
 
     ``exchange_s`` sums the seconds spent in exchanges and gathers,
     host staging included (on a card, after the work queued before them
-    has finished)."""
+    has finished).  ``group`` is the process group of the mesh's ranks
+    (None: the default group, which then holds exactly them); ``rank``
+    and every peer are ranks of the mesh, which are the group's."""
 
     def __init__(self, shape, device, axis_names=("y", "x"),
-                 rank: int = 0, backend: str | None = None):
+                 rank: int = 0, backend: str | None = None, group=None):
         self.shape = tuple(int(n) for n in shape)
         self.axis_names = tuple(axis_names)
         self.size = self.shape[0] * self.shape[1]
@@ -57,6 +63,7 @@ class RankMesh:
         self.iy, self.ix = divmod(self.rank, self.shape[1])
         self.device = torch.device(device)
         self.backend = backend
+        self.group = group
         self.host_staged = backend == "gloo" and self.device.type == "cuda"
         if backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an nccl process group needs ranks on cuda")
@@ -86,6 +93,11 @@ class RankMesh:
                 else None,
                 self.rank_of(self.iy - 1, self.ix) if self.iy > 0 else None)
 
+    def _global(self, rank: int) -> int:
+        """The process group's global rank of the mesh's ``rank``."""
+        return rank if self.group is None \
+            else dist.get_global_rank(self.group, rank)
+
     def _clock(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -101,11 +113,13 @@ class RankMesh:
         ops, outs = [], []
         for t, peer, tag in sends:
             buf = t.cpu().contiguous() if stage else t.contiguous()
-            ops.append(dist.P2POp(dist.isend, buf, peer, tag=tag))
+            ops.append(dist.P2POp(dist.isend, buf, self._global(peer),
+                                  self.group, tag=tag))
         for like, peer, tag in recvs:
             buf = torch.empty(like.shape, dtype=like.dtype,
                               device="cpu" if stage else self.device)
-            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=tag))
+            ops.append(dist.P2POp(dist.irecv, buf, self._global(peer),
+                                  self.group, tag=tag))
             outs.append(buf)
         if ops:
             for req in dist.batch_isend_irecv(ops):
@@ -123,7 +137,7 @@ class RankMesh:
         t0 = self._clock()
         buf = t.cpu().contiguous() if self.host_staged else t.contiguous()
         outs = [torch.empty_like(buf) for _ in range(self.size)]
-        dist.all_gather(outs, buf)
+        dist.all_gather(outs, buf, group=self.group)
         if self.host_staged:
             outs = [o.to(self.device) for o in outs]
         self.messages += self.size - 1
@@ -142,20 +156,32 @@ class RankMesh:
         return got
 
 
-def make_mesh(shape=(1, 1), axis_names=("y", "x"), device=None) -> RankMesh:
+def make_mesh(shape=(1, 1), axis_names=("y", "x"), device=None):
     """This process's rank in a ``shape`` mesh over the default process
-    group; raises if the group's world size is not ny*nx.  Without a
-    process group only the (1, 1) mesh exists.  ``device``: the rank's
-    device, ``cuda`` unless the caller asks for another."""
+    group.  Without a process group only the (1, 1) mesh exists.
+    ``device``: the rank's device, ``cuda`` unless the caller asks for
+    another.
+
+    The mesh may use part of the group, as the reference's run lays a
+    (2, 3) mesh over 8 devices, of which 6 take part: on a world larger
+    than ny*nx, ranks 0..ny*nx-1 form the mesh on a group of their own
+    (``dist.new_group``, which every rank of the world joins), and the
+    others get None: they do no work and should wait for the mesh's
+    ranks at a barrier of the world before they leave.  A mesh larger
+    than the world raises."""
     device = resolve_device(device)
     n = int(np.prod(shape))
     if dist.is_available() and dist.is_initialized():
         world = dist.get_world_size()
-        if world != n:
+        if world < n:
             raise ValueError(f"mesh {tuple(shape)} needs {n} ranks, the "
                              f"process group has {world}")
-        return RankMesh(shape, device, axis_names, dist.get_rank(),
-                        dist.get_backend())
+        group = dist.new_group(list(range(n))) if world > n else None
+        rank = dist.get_rank()
+        if rank >= n:
+            return None
+        return RankMesh(shape, device, axis_names, rank,
+                        dist.get_backend(), group)
     if n != 1:
         raise ValueError(f"mesh {tuple(shape)} needs {n} ranks and a "
                          "process group; none is initialised")
@@ -211,8 +237,8 @@ def gather_pytree(tree, mesh: RankMesh, jmt: int, imt: int,
                   root: int | None = None):
     """Inverse of ``shard_pytree`` (the counterpart of ``jax.device_get``
     of a sharded array): the global fields assembled on every rank, or,
-    with ``root``, on that rank only (None elsewhere).  Every rank takes
-    part either way.  A tensor whose block is not (ly, lx) — replicated
+    with ``root``, on that rank of the mesh only (None elsewhere).  Every
+    rank takes part either way.  A tensor whose block is not (ly, lx) — replicated
     barotropic fields, scalars — is taken as it is."""
     jmt_p, imt_p = padded_window(jmt, imt, mesh.shape)
     ly, lx = jmt_p // mesh.shape[0], imt_p // mesh.shape[1]
