@@ -8,6 +8,7 @@ card.
     python3 chip_smoke.py --golden-years N # N earth years against the golden
     python3 chip_smoke.py --precision-year DIR  # the float32 year, into DIR
     python3 chip_smoke.py --golden-gaps TSI_CSV  # a run's tsi, by year
+    python3 chip_smoke.py --cards 4        # phase 16 on four cards, NCCL
 
 Phases (each failure ends the run with a non-zero exit code):
 
@@ -342,6 +343,42 @@ table for a tsi stream another run wrote from EARTH_RESTART (no card
 needed: the JAX package's ``scripts/run_production.py --earth
 --from-restart earth_accept/restart.npz`` in float32, for one).
 
+With --cards N (N >= 4; it raises on a host with fewer cards, with no
+fallback to fewer cards or to gloo) the script builds the kernels once
+in the parent and runs phase 16, the rank-decomposed paths on the four
+ranks of CARDS_MESH, one rank a card (``parallel.launch.rank_card``),
+over NCCL: device tensors card to card, none staged through the host.
+B3's wrapper handed tensors of card 1 while card 0 is current must
+raise.  (a) The flagship (``entry._flagship``: 102x102x19, float32,
+its primed cold start with phase 2's noise), CARDS_SCHEDULE's leapfrog
+steps CARDS_RUNS times: the gathered state bitwise the unsharded steps
+on card 0 (generic tracer step), every rank's replicated fields bitwise
+rank 0's, every rank's launches (B3 and B2 once a step, B1 never),
+each rank's card printed; B3 on rank 0's block and B2 on its
+replicated solve against their plain versions, B1 on card 0 on the
+unsharded step's inputs.  (b) The earth segment from EARTH_RESTART
+through ``ShardedCoupledModel`` (``sharded_earth_check``) and (c)
+g1-g3 (OPTION_MODELS), CARDS_OPTIONS_SCHEDULE's mixing step (g1's two
+Euler-backward passes; ``sharded_option_check``), each bitwise its
+unsharded run, with every rank's launches.  Then the flagship steps
+again over gloo, each rank on its own card and its messages staged
+through the host, held the same way: rank 0's ms a step, ms in
+messages and messages a step for both transports.  In the same gloo
+ranks each card captures and replays the unsharded earth segment from
+EARTH_RESTART and digests the workspace after each stage; the digests
+are printed side by side, and where the cards part, the first stage
+that parts and its largest gap (``replay_check``; printed, not a
+failure: an open finding).  (d) ``make_multihost_artifact --backend
+nccl``'s runs (the (2, 2) mesh from one launcher and from two
+launchers of two ranks, the (1, 3) mesh on three of four ranks, the
+fourth idle and exit 0), CARDS_ARTIFACT_STEPS steps after the first:
+every state digest equal to the unsharded steps on card 0, every rank
+of each mesh on a card of its own with B3 and B2 once a step; the
+record printed as ``MULTIHOST_torch_nccl.json``'s.  Its kernels line
+holds the three kernels (``launches``: rank 0's over (a)'s first run;
+``launches_by_path`` every rank's in (a)-(d)), then the result line.
+Its watchdog is CARDS_WATCHDOG_S.
+
 With --precision-year DIR the script builds the kernels and runs the
 float32 year of ``uvic_tpu_torch.precision_year`` (73 replayed segments
 of ``earth_config()`` from ``init_state()``) on the card, writes its
@@ -632,6 +669,7 @@ TOL_SHARDED = dict(t=0.0, tm1=0.0, u=0.0, um1=0.0, psi0=0.0, psi1=0.0,
 # setbcx acts on it as on the whole field) and the barotropic solves
 # replicated, so any gap is a fault to find, not round-off.
 SHARDED_OPTIONS_SCHEDULE = (False, True)
+SHARE = "sharing one H100 (a check of the machinery, not a speed-up)"
 TOL_SHARDED_OPTIONS = 0.0
 # The rank-decomposed earth segment (phase 13's second part): in the same
 # ranks, one ShardedCoupledModel segment of the earth model from
@@ -646,6 +684,24 @@ TOL_SHARDED_EARTH = 0.0
 # it on one CPU (JAX 0.9.0; both dtypes on the CPU); the card's float32
 # against the CPU's float64 is held to PRECISION_FACTOR x each figure
 # (the golden limits' rule, golden/regression/spinup_earth_year.json).
+# --cards N, phase 16: the rank-decomposed paths on CARDS_MESH's four
+# ranks, one a card, over NCCL (device tensors card to card), each held
+# to its unsharded run on card 0 within TOL_CARDS (0: the sharded paths
+# move bits and never sum across ranks, so NCCL gives what gloo gave);
+# the flagship from phase 2's noisy primed cold start, CARDS_SCHEDULE's
+# leapfrog steps, run CARDS_RUNS times (the later ones warm, timed) over
+# NCCL and over host-staged gloo on the same cards; the option models
+# CARDS_OPTIONS_SCHEDULE (one mixing step: two Euler-backward passes for
+# g1); make_multihost_artifact's NCCL runs of CARDS_ARTIFACT_STEPS steps
+# after the first.
+CARDS_MESH = (2, 2)
+CARDS_SCHEDULE = (True, True)
+CARDS_RUNS = 2
+CARDS_OPTIONS_SCHEDULE = (False,)
+CARDS_ARTIFACT_STEPS = 10
+CARDS_TIMEOUT_S = 420
+CARDS_WATCHDOG_S = 900
+TOL_CARDS = 0.0
 # Phase 15: make_multihost_artifact's (2, 3) mesh on the card, its step
 # count and the phase's budget
 MULTIHOST_STEPS = 2
@@ -685,6 +741,14 @@ PRECISION_F64 = "golden/precision_torch/tsi_year_f64_jax.json"
 PRECISION_F64_OLD = "golden/precision/tsi_year_f64.json"
 PRECISION_JAX_DIVERGENCE = "golden/precision/divergence.json"
 PRECISION_YEAR_S = 900
+# each wrapper's CUDA source and the TPU kernel it replaces
+KERNEL_SOURCES = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
+                                      "uvic_tpu/ops/pallas_tracer.py:86"),
+                  "apply_region_means": (
+                      "uvic_tpu_torch/csrc/convect_apply.cu",
+                      "uvic_tpu/ops/convection.py:90"),
+                  "congrad": ("uvic_tpu_torch/csrc/congrad.cu",
+                              "uvic_tpu/ops/pallas_cg.py:87")}
 KERNEL_NAMES = {"fct_tracer_step": "fct_tracer_kernel",
                 "apply_region_means": "region_means_kernel",
                 "congrad": "congrad_cluster_kernel"}
@@ -877,12 +941,17 @@ def clocks_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def card_line():
+def cards_lines():
+    """Each card's name and power limit (nvidia-smi), a line each."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line():
+    return cards_lines()[0]
 
 
 def cuda_time_ms(fn, n=N_TIMED, warm=3):
@@ -3540,7 +3609,7 @@ def sharded_earth_rank(mesh):
     return res
 
 
-def sharded_earth_check(res):
+def sharded_earth_check(res, where=SHARE):
     """Phase 13's earth part in the parent: the gathered state and time
     means of the ranks' segment against the unsharded eager segment on
     the generic tracer step (within TOL_SHARDED_EARTH of each field's
@@ -3618,8 +3687,8 @@ def sharded_earth_check(res):
                   exchange_ms=1e3 * r0["exchange_s"],
                   messages=r0["messages"],
                   max_memory_gb=r0["max_memory"] / 2**30)
-    say(f"  earth: {n} ranks sharing one H100 (a check of the machinery, "
-        f"not a speed-up): rank 0's segment {timing['segment_ms']:.1f} ms, "
+    say(f"  earth: {n} ranks {where}: rank 0's segment "
+        f"{timing['segment_ms']:.1f} ms, "
         f"{timing['exchange_ms']:.1f} ms of it in messages, host staging "
         f"and the waits inside them ({r0['messages']} messages); rank 0's "
         f"peak allocated memory {timing['max_memory_gb']:.2f} GiB; "
@@ -3761,11 +3830,11 @@ def sharded_job(m, start, forcing, schedule):
     return job
 
 
-def sharded_option_references():
+def sharded_option_references(schedule=SHARDED_OPTIONS_SCHEDULE):
     """Phase 13's option models in the parent: each of OPTION_MODELS at
     full width, phase 2's perturbed state, its unsharded steps over
-    SHARDED_OPTIONS_SCHEDULE on the generic tracer step and on the
-    default one (B1 where the model takes it), and the ranks' job."""
+    ``schedule`` on the generic tracer step and on the default one (B1
+    where the model takes it), and the ranks' job."""
     from uvic_tpu_torch.convert import ocean_state_to_numpy
     from uvic_tpu_torch.entry import _flagship
     out = {}
@@ -3778,18 +3847,18 @@ def sharded_option_references():
             m.fused_tracer, saved = fused and m.fused_tracer, m.fused_tracer
             try:
                 s = start
-                for lf in SHARDED_OPTIONS_SCHEDULE:
+                for lf in schedule:
                     s = m.step(s, forcing, leapfrog=lf)
             finally:
                 m.fused_tracer = saved
             refs[fused] = ocean_state_to_numpy(s)
         out[name] = dict(model=m, ref=refs[False], ref_fused=refs[True],
-                         job=sharded_job(m, start, forcing,
-                                         SHARDED_OPTIONS_SCHEDULE))
+                         job=sharded_job(m, start, forcing, schedule))
     return out
 
 
-def sharded_option_check(name, o, ranks):
+def sharded_option_check(name, o, ranks,
+                         schedule=SHARDED_OPTIONS_SCHEDULE, where=SHARE):
     """Phase 13's option model ``name`` in the parent: the gathered state
     against the unsharded generic-step steps within TOL_SHARDED_OPTIONS
     (the gap from the default steps printed beside it), every rank's
@@ -3829,7 +3898,7 @@ def sharded_option_check(name, o, ranks):
                                      "differs from rank 0's")
     eb = m.cfg.ocean.eb
     passes = sum(2 if (eb and not lf) else 1
-                 for lf in SHARDED_OPTIONS_SCHEDULE)
+                 for lf in schedule)
     full = m.cfg.ocean.convection == "full"
     want = {"fct_tracer_step": 0,
             "apply_region_means": passes if full else 0,
@@ -3840,14 +3909,14 @@ def sharded_option_check(name, o, ranks):
                                  f"{r['launches']}, the path {want}")
     say(f"  {name}: {', '.join(sorted(r0['barotropic']))} bitwise equal on "
         f"all {len(ranks)} ranks; launches on every rank over "
-        f"{len(SHARDED_OPTIONS_SCHEDULE)} steps ({passes} step passes) "
+        f"{len(schedule)} steps ({passes} step passes) "
         f"{json.dumps(want)}")
     timing = dict(step_ms=[1e3 * t for t in r0["step_s"]],
                   exchange_ms=[1e3 * t for t in r0["exchange_s"]],
                   messages=r0["messages"])
-    say(f"  {name}: {len(ranks)} ranks sharing one H100 (a check of the "
-        f"machinery, not a speed-up): rank 0's steps "
-        f"{[round(t, 1) for t in timing['step_ms']]} ms (mixing, leapfrog),"
+    say(f"  {name}: {len(ranks)} ranks {where}: rank 0's steps "
+        f"{[round(t, 1) for t in timing['step_ms']]} ms ("
+        + ", ".join("leapfrog" if lf else "mixing" for lf in schedule) + "),"
         f" {[round(t, 1) for t in timing['exchange_ms']]} ms of them in "
         f"messages and host staging, the first waiting for the slowest "
         f"rank's start; {r0['messages']} messages; {card_line()}")
@@ -3866,7 +3935,7 @@ def sharded_option_check(name, o, ranks):
         raise AssertionError(f"sharded {name}: full convection ran")
     say(f" {name}: congrad on rank 0's replicated solve (its last step's "
         "inputs)")
-    solver, _ = m.barotropic_solver(SHARDED_OPTIONS_SCHEDULE[-1])
+    solver, _ = m.barotropic_solver(schedule[-1])
     out["cg"] = check_cg_solve(solver, cuda(r0["inputs"]["cg"]),
                                f"sharded {name} rank 0",
                                solution_projection(m))
@@ -3984,6 +4053,462 @@ def multihost_phase(single):
                 single_launches=single["launches"],
                 step_ms=r0["ms_per_step"],
                 exchange_ms=r0["exchange_ms_per_step"], idle=idle)
+
+
+def require_cards(n):
+    """Raise unless the host has ``n`` cards (``--cards``: no fallback to
+    fewer cards or to gloo)."""
+    import torch
+    count = torch.cuda.device_count()
+    if count < n:
+        raise RuntimeError(f"--cards {n} needs {n} cards, one rank a card; "
+                           f"this host has {count}")
+
+
+def cards_rank(mesh, job, option_jobs):
+    """Phase 16's NCCL rank: the flagship job CARDS_RUNS times (rank 0
+    records the inputs of B3 and B2 of the first run's last step), the
+    earth segment (``sharded_earth_rank``, rank 0 recording its last
+    ocean step's) and the option models (``sharded_option_ranks``)."""
+    import torch
+    from uvic_tpu_torch.parallel.shard_step import run_sharded
+    out = dict(card=torch.cuda.current_device(), device=str(mesh.device),
+               transport=mesh.transport, flagship=[])
+    for n in range(CARDS_RUNS):
+        with recorded_inputs(mesh.rank == 0 and n == 0) as seen:
+            out["flagship"].append(run_sharded(mesh, **job))
+        out["flagship"][-1]["inputs"] = seen
+    with recorded_inputs(mesh.rank == 0) as seen:
+        out["earth"] = sharded_earth_rank(mesh)
+    out["earth"]["inputs"] = seen
+    out["options"] = sharded_option_ranks(mesh, option_jobs)
+    return out
+
+
+def cards_gloo_rank(mesh, job):
+    """Phase 16's gloo rank, on its own card, its messages staged through
+    the host: the flagship job CARDS_RUNS times, then the replayed earth
+    segment's stage digests (``replay_rank``)."""
+    import torch
+    from uvic_tpu_torch.parallel.shard_step import run_sharded
+    return dict(card=torch.cuda.current_device(), device=str(mesh.device),
+                transport=mesh.transport,
+                flagship=[run_sharded(mesh, **job)
+                          for _ in range(CARDS_RUNS)],
+                replay=replay_rank(mesh))
+
+
+def replay_digests(m, start, keep=None):
+    """One segment of the coupled model ``m`` from ``start`` replayed
+    from its stage graphs (captured first when ``m`` has none), with a
+    digest of every workspace entry after each stage's replay: a list of
+    (stage, {entry: digest}).  ``keep`` = (stage index, entries): those
+    entries' values after that stage too, as NumPy.  ``m.relyr`` is left
+    as it was, so every call replays the same segment."""
+    import hashlib
+    import torch
+    relyr = m.relyr
+    if m._graphs is None:
+        m.run(start, 1)
+        m.relyr = relyr
+    g = m._graphs
+    stages, kept = [], {}
+
+    class Digesting:
+        def __init__(self, key, graph):
+            self.key, self.graph = key, graph
+
+        def replay(self):
+            self.graph.replay()
+            torch.cuda.synchronize()
+            if keep is not None and keep[0] == len(stages):
+                kept.update({k: g.ws[k].cpu().numpy() for k in keep[1]})
+            stages.append((f"{self.key[0]} {self.key[1]}", {
+                k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()[:16]
+                for k, v in sorted(g.ws.items())}))
+
+    graphs = g.graphs
+    g.graphs = {k: Digesting(k, v) for k, v in graphs.items()}
+    try:
+        m.run(start, 1)
+    finally:
+        g.graphs = graphs
+        m.relyr = relyr
+    return stages, kept
+
+
+def replay_rank(mesh):
+    """The satellite of phase 16 on a rank: the unsharded earth model from
+    EARTH_RESTART on the rank's card, its segment captured and replayed
+    (``replay_digests``); the ranks' digests compared through the process
+    group, and where they part, the parting entries' values at the first
+    stage that parts replayed again.  Returns the stages, that stage's
+    index (None: all equal) and the values."""
+    import torch.distributed as dist
+    from uvic_tpu_torch.entry import _earth
+    m, start = _earth(EARTH_RESTART, device=mesh.device)
+    stages, _ = replay_digests(m, start)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, stages)
+    first = next((i for i in range(len(stages))
+                  if any(e[i] != stages[i] for e in everyone)), None)
+    kept = {}
+    if first is not None:
+        # the same entries on every rank: those where two ranks differ
+        parting = sorted({k for e in everyone
+                          for k, d in e[first][1].items()
+                          if d != stages[first][1][k]})
+        _, kept = replay_digests(m, start, keep=(first, parting))
+    return dict(stages=stages, first=first, kept=kept)
+
+
+def replay_check(ranks):
+    """The ranks' replayed-segment digests (``replay_rank``) side by side:
+    printed stage by stage; where they part, the first stage that parts
+    and the largest gap of an entry there over its scale.  Returns the
+    first parting stage's label (None: every stage equal on every
+    card) and that gap."""
+    import numpy as np
+    stages = [r["replay"]["stages"] for r in ranks]
+    n = len(stages[0])
+    say(f"  the unsharded earth segment captured and replayed on each of "
+        f"{len(ranks)} cards (cards {[r['card'] for r in ranks]}), "
+        f"{n} stages, digests of {len(stages[0][0][1])} workspace entries "
+        f"after each")
+    for i in range(n):
+        digests = [stage_digest(s[i][1]) for s in stages]
+        say(f"   {i:2d} {stages[0][i][0]:12s} "
+            + " ".join(digests)
+            + ("" if len(set(digests)) == 1 else "  PARTS"))
+    first = ranks[0]["replay"]["first"]
+    if first is None:
+        say(f"  replayed segment: every stage's digests equal on all "
+            f"{len(ranks)} cards (bitwise across processes)")
+        return None, 0.0
+    ref = ranks[0]["replay"]["kept"]
+    gaps = {}
+    for r in ranks[1:]:
+        for k, a in r["replay"]["kept"].items():
+            scale = max(float(np.abs(ref[k].astype(np.float64)).max()),
+                        1e-30)
+            gap = float(np.abs(a.astype(np.float64)
+                               - ref[k].astype(np.float64)).max()) / scale
+            gaps[k] = max(gaps.get(k, 0.0), gap)
+    worst = max(gaps.values()) if gaps else 0.0
+    say(f"  replayed segment: the cards part first at stage {first} "
+        f"({stages[0][first][0]}); largest gap over scale {worst!r} in "
+        + json.dumps(dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:6])))
+    return stages[0][first][0], worst
+
+
+def stage_digest(entries):
+    """16 hex digits of the SHA-256 of a stage's entry digests."""
+    import hashlib
+    return hashlib.sha256(json.dumps(sorted(entries.items())).encode()
+                          ).hexdigest()[:16]
+
+
+def cards_flagship_check(label, ranks, ref, n_cards):
+    """Phase 16 (a) for one transport: every run's gathered state on rank
+    0 bitwise the unsharded steps (``ref``), every rank's replicated
+    fields bitwise rank 0's, every rank's launches (B3 and B2 once a
+    step, B1 never), a card of its own for each rank; rank 0's step,
+    message time and messages a step (medians of the warm steps: the
+    first run's first step waits for the slowest rank and makes the
+    transport's first connections).  Returns the timing."""
+    import numpy as np
+    cards = [r["card"] for r in ranks]
+    say(f"  {label}: transport {ranks[0]['transport']}; each rank's card "
+        f"{cards} ({[r['device'] for r in ranks]})")
+    if cards != [r % n_cards for r in range(len(ranks))]:
+        raise AssertionError(f"{label}: the ranks' cards {cards}")
+    want = {"fct_tracer_step": 0, "apply_region_means": len(CARDS_SCHEDULE),
+            "congrad": len(CARDS_SCHEDULE)}
+    for run in range(CARDS_RUNS):
+        got = ranks[0]["flagship"][run]["state"]
+        gaps = {k: float(np.abs(got[k].astype(np.float64) - ref[k]).max())
+                for k in TOL_SHARDED}
+        say(f"  {label}, run {run + 1}: gathered state against the "
+            f"unsharded steps on card 0, largest gap {json.dumps(gaps)}")
+        if any(g > TOL_CARDS for g in gaps.values()) \
+                or int(got["itt"]) != int(ref["itt"]) \
+                or int(got["nconv"]) != int(ref["nconv"]):
+            raise AssertionError(f"{label}: the sharded steps differ from "
+                                 "the unsharded")
+        first = ranks[0]["flagship"][run]["barotropic"]
+        for rank, r in enumerate(ranks):
+            fr = r["flagship"][run]
+            for k, v in fr["barotropic"].items():
+                if not np.array_equal(v, first[k]):
+                    raise AssertionError(f"{label}: rank {rank}'s {k} "
+                                         "differs from rank 0's")
+            if fr["launches"] != want:
+                raise AssertionError(f"{label}: rank {rank} launched "
+                                     f"{fr['launches']}, the path {want}")
+    say(f"  {label}: {CARDS_RUNS} runs of {len(CARDS_SCHEDULE)} leapfrog "
+        f"steps bitwise the unsharded steps (gap 0); psi0, psi1, ptd, ptdb "
+        f"bitwise equal on all {len(ranks)} ranks; launches on every rank "
+        f"in each run {json.dumps(want)}")
+    runs = ranks[0]["flagship"]
+    step_ms = [1e3 * t for r in runs for t in r["step_s"]]
+    ex_ms = [1e3 * t for r in runs for t in r["exchange_s"]]
+    timing = dict(step_ms=statistics.median(step_ms[1:]),
+                  exchange_ms=statistics.median(ex_ms[1:]),
+                  messages=runs[-1]["messages"] / len(CARDS_SCHEDULE),
+                  step_ms_all=step_ms, exchange_ms_all=ex_ms)
+    say(f"  {label}: rank 0's leapfrog step {timing['step_ms']:.2f} ms, "
+        f"{timing['exchange_ms']:.2f} ms of it in messages (medians of "
+        f"the {len(step_ms) - 1} warm steps; by step "
+        f"{[round(t, 2) for t in step_ms]} and "
+        f"{[round(t, 2) for t in ex_ms]} ms), {timing['messages']:.0f} "
+        f"messages a step; {card_line()}")
+    return timing
+
+
+def cards_bootstrap(n_cards, backend="nccl", device="cuda"):
+    """Phase 16 (d): ``make_multihost_artifact --backend nccl``'s runs on
+    the cards (the (2, 2) mesh from one launcher and from two launchers
+    of two ranks; the (1, 3) mesh on three of four ranks, the fourth
+    idle), every state digest held to the unsharded steps on card 0,
+    the idle rank's exit code 0, every rank of the mesh on a card of its
+    own with B3 and B2 launched once a step (B1 never); the record
+    printed as MULTIHOST_torch_nccl.json's."""
+    import tempfile
+    from uvic_tpu_torch import make_multihost_artifact as art
+    from uvic_tpu_torch.run_multihost import cold_start, state_digest
+    with tempfile.TemporaryDirectory(prefix="chip_cards_") as tmp:
+        res = art.run_pair(CARDS_ARTIFACT_STEPS, device, tmp, backend)
+    record = art.artifact(res, device, backend)
+    m, s, f = cold_start(device)
+    m.fused_tracer = False
+    for _ in range(CARDS_ARTIFACT_STEPS + 1):
+        s = m._step(s, f, leapfrog=True)
+    one_card = state_digest(s)
+    runs = {"single (2, 2)": res["single_statuses"],
+            "two launchers (2, 2)": res["statuses"],
+            "two launchers (1, 3)": res["part"]["statuses"]}
+    digests = {name: st[0]["digest"] for name, st in runs.items()}
+    say(f"  the runs took {[round(t, 1) for t in res['seconds']]} s; state "
+        f"digests {json.dumps(digests)}; the unsharded steps on card 0 "
+        f"{one_card}")
+    if set(digests.values()) != {one_card}:
+        raise AssertionError("the bootstrap's runs differ from the "
+                             "unsharded steps")
+    want = {"fct_tracer_step": 0,
+            "apply_region_means": CARDS_ARTIFACT_STEPS + 1,
+            "congrad": CARDS_ARTIFACT_STEPS + 1}
+    launches = {}
+    for name, st in runs.items():
+        on = [s for _, s in sorted(st.items()) if s["on_mesh"]]
+        idle = {r: s["code"] for r, s in st.items() if not s["on_mesh"]}
+        cards = [s["card"] for s in on]
+        launches[name] = [s["launches"] for s in on]
+        say(f"  {name}: ranks' cards {cards}, transport "
+            f"{on[0]['transport']}, idle ranks' exit codes "
+            f"{json.dumps(idle)}; rank 0's step {on[0]['ms_per_step']} ms, "
+            f"{on[0]['exchange_ms_per_step']} ms of it in messages, "
+            f"{on[0]['messages_per_step']:.0f} messages a step")
+        own = [f"cuda:{r % n_cards}" if device == "cuda" else device
+               for r in range(len(on))]
+        if cards != own or any(idle.values()) \
+                or any(c != want for c in launches[name]):
+            raise AssertionError(f"{name}: {json.dumps(st)}")
+    if list(res["part"]["statuses"]) and sorted(
+            r for r, s in res["part"]["statuses"].items()
+            if not s["on_mesh"]) != [n_cards - 1]:
+        raise AssertionError("the (1, 3) run's idle rank")
+    say(f"  launches on every rank of the mesh, every run: "
+        f"{json.dumps(want)}; launchers' exit codes "
+        f"{res['launcher_codes']} and {res['part']['launcher_codes']}")
+    say("  MULTIHOST_torch_nccl.json: " + json.dumps(record))
+    return dict(record=record, launches=launches, digests=digests,
+                one_card=one_card, seconds=res["seconds"])
+
+
+def refuse_other_card(seen):
+    """B3's wrapper handed the captured inputs moved to card 1 while card
+    0 is current must raise (``cuda.check_cuda``), not launch."""
+    import torch
+    from uvic_tpu_torch.ops.convection import apply_region_means
+    ts, mnorm, ocean, _ = convect_inputs(seen)
+    other = torch.device("cuda", 1)
+    try:
+        apply_region_means(ts.to(other), mnorm.to(other), ocean.to(other))
+    except ValueError as e:
+        say(f"  apply_region_means on tensors of cuda:1, cuda:"
+            f"{torch.cuda.current_device()} current: refused ({e})")
+    else:
+        raise AssertionError("a kernel launched on another card's tensors")
+
+
+def cards_phase(n_cards, backend="nccl"):
+    """Phase 16 (``--cards``): the rank-decomposed paths on CARDS_MESH's
+    ranks, one a card, over ``backend`` (NCCL: device tensors card to
+    card), each held bitwise to its unsharded run on card 0; the same
+    flagship steps over host-staged gloo on the same cards; the replayed
+    earth segment's stage digests across the cards; over NCCL the
+    bootstrap.  ``backend="gloo"`` on one card (every rank on card 0)
+    rehearses the phase on one chip.  Returns what the kernels line
+    needs."""
+    import numpy as np
+    import torch
+    from uvic_tpu_torch.convert import ocean_state_to_numpy
+    from uvic_tpu_torch.entry import _flagship
+    from uvic_tpu_torch.parallel.launch import spawn
+    t0 = time.perf_counter()
+    m, state, forcing = _flagship()
+    start = perturbed(m, state)
+    _, seen = capture_step(m, start, forcing)
+
+    def unsharded(fused):
+        m.fused_tracer, saved = fused, m.fused_tracer
+        try:
+            s = start
+            for lf in CARDS_SCHEDULE:
+                s = m._step(s, forcing, leapfrog=lf)
+        finally:
+            m.fused_tracer = saved
+        return ocean_state_to_numpy(s)
+    ref = unsharded(False)
+    if n_cards > 1:
+        refuse_other_card(seen)
+    job = sharded_job(m, start, forcing, CARDS_SCHEDULE)
+    options = sharded_option_references(CARDS_OPTIONS_SCHEDULE)
+    say(f"  the flagship (phase 2's noise on its primed cold start), its "
+        f"unsharded steps and the option models' on card 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    say(f" (a)-(c) {backend}, {CARDS_MESH} mesh, one rank a card")
+    t0 = time.perf_counter()
+    res = spawn(cards_rank, CARDS_MESH, backend, "cuda", CARDS_TIMEOUT_S,
+                job, {name: o["job"] for name, o in options.items()})
+    say(f"  {len(res)} ranks: start, builds, the flagship steps, the earth "
+        f"segment and the option models in {time.perf_counter() - t0:.1f} s")
+    if backend == "nccl" and res[0]["transport"] != "nccl, cuda tensors":
+        raise AssertionError(f"transport {res[0]['transport']}")
+    timing = {backend: cards_flagship_check(f"(a) flagship {backend}", res,
+                                            ref, n_cards)}
+    r0 = res[0]["flagship"][0]
+
+    def cuda(v):
+        return tuple(torch.as_tensor(x, device="cuda")
+                     if isinstance(x, np.ndarray) else x for x in v)
+    say(" apply_region_means on rank 0's block (its last step's inputs)")
+    k_convect = check_convect({"convect": cuda(r0["inputs"]["convect"])})
+    say(" congrad on rank 0's replicated solve (its last step's inputs)")
+    solver, _ = m.barotropic_solver(True)
+    k_cg = check_cg_solve(solver, cuda(r0["inputs"]["cg"]),
+                          f"{backend} rank 0")
+    say(" fct_tracer_step on card 0, the unsharded step's inputs (the "
+        "sharded step takes the generic tracer step)")
+    k_tracer = check_tracer(m, seen)
+    for k in (k_tracer, k_convect, k_cg):
+        k.pop("per_call_fn", None)
+        say_kernel(f"{backend} rank 0", k)
+    where = f"on {n_cards} cards, one a rank, over {backend}"
+    say(f" (b) the earth segment, {backend}")
+    earth = sharded_earth_check(res, where)
+    say(f" (c) the option models, one step each, {backend}")
+    opt = {name: sharded_option_check(name, o, [r["options"][name]
+                                                for r in res],
+                                      CARDS_OPTIONS_SCHEDULE, where)
+           for name, o in options.items()}
+    by_path = {name: {
+        f"flagship_{backend}": [r["flagship"][0]["launches"][name]
+                                for r in res],
+        f"earth_{backend}_per_segment": [c[name] for c in earth["launches"]],
+        f"options_{backend}": {o: [c[name] for c in r["launches"]]
+                               for o, r in opt.items()}}
+        for name in KERNEL_SOURCES}
+    del res
+
+    say(f" (a) the same flagship steps over gloo, each rank on its own "
+        f"card, messages staged through the host; then each card's "
+        f"replayed earth segment")
+    t0 = time.perf_counter()
+    gres = spawn(cards_gloo_rank, CARDS_MESH, "gloo", "cuda",
+                 CARDS_TIMEOUT_S, job)
+    say(f"  {len(gres)} ranks in {time.perf_counter() - t0:.1f} s")
+    timing["gloo"] = cards_flagship_check("(a) flagship gloo", gres, ref,
+                                          n_cards)
+    nccl, gloo = timing[backend], timing["gloo"]
+    say(f"  transports on the same {n_cards} cards, rank 0's leapfrog step:"
+        f" {backend} {nccl['step_ms']:.2f} ms ({nccl['exchange_ms']:.2f} ms "
+        f"in messages), gloo host-staged {gloo['step_ms']:.2f} ms "
+        f"({gloo['exchange_ms']:.2f} ms), {nccl['messages']:.0f} messages a "
+        f"step each; {card_line()}")
+    replay = replay_check(gres)
+    for name in KERNEL_SOURCES:
+        by_path[name]["flagship_gloo"] = [r["flagship"][0]["launches"][name]
+                                          for r in gres]
+    boot = None
+    if backend == "nccl":
+        say(f" (d) the bootstrap, make_multihost_artifact --backend "
+            f"{backend}")
+        boot = cards_bootstrap(n_cards)
+        for name in KERNEL_SOURCES:
+            by_path[name][f"bootstrap_{backend}"] = {
+                run: [c[name] for c in counts]
+                for run, counts in boot["launches"].items()}
+    return dict(kernels=(k_tracer, k_convect, k_cg), timing=timing,
+                earth=earth, options=opt, replay=replay, boot=boot,
+                launches_by_path=by_path)
+
+
+def cards_main(n_cards):
+    """--cards N: phase 16 on the four cards of CARDS_MESH (N >= 4), the
+    kernels line and the result line."""
+    import torch
+    from uvic_tpu_torch.cuda import LIBRARY
+    require_cards(n_cards)
+    for i, line in enumerate(cards_lines()):
+        say(f"card {i}: {line}")
+    say(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+    phase("phase 1: build, once, before any rank starts")
+    LIBRARY.get()
+    say(f"  kernels built/loaded in {LIBRARY.build_seconds:.1f} s")
+    n = CARDS_MESH[0] * CARDS_MESH[1]
+    phase(f"phase 16: the rank-decomposed paths on {n} cards, one rank a "
+          f"card, over NCCL, against the unsharded runs on card 0")
+    out = cards_phase(n)
+    phase(None)
+    kernels = []
+    for k in out["kernels"]:
+        name = k["name"]
+        src, rep = KERNEL_SOURCES[name]
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep,
+                 "launches": out["launches_by_path"][name]["flagship_nccl"][0],
+                 **{key: k[key] for key in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "device_ms")},
+                 "launches_by_path": out["launches_by_path"][name]}
+        kk = {"apply_region_means": "convect", "congrad": "cg"}.get(name)
+        if kk is not None:
+            def fields(r):
+                return {key: r[kk][key] for key in (
+                    "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "iters") if key in r[kk]}
+            entry["sharded_earth"] = fields(out["earth"])
+            entry["sharded_options"] = {o: fields(r) for o, r in
+                                        out["options"].items() if kk in r}
+        kernels.append(entry)
+    t = out["timing"]
+    say(f"rank 0's leapfrog step on {n} cards: nccl {t['nccl']['step_ms']:.2f}"
+        f" ms ({t['nccl']['exchange_ms']:.2f} ms in messages), gloo "
+        f"host-staged {t['gloo']['step_ms']:.2f} ms "
+        f"({t['gloo']['exchange_ms']:.2f} ms); replayed earth segment "
+        + ("bitwise on every card" if out["replay"][0] is None
+           else f"parts at {out['replay'][0]} (gap {out['replay'][1]!r})"))
+    say("phase seconds: " + json.dumps(
+        {p: round(s, 1) for p, s in PHASE_S.items()}))
+    say(card_line())
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def start_study_references():
@@ -4152,6 +4677,11 @@ def main(argv):
             WATCHDOG_S + GOLDEN_YEAR_S * int(argv[1]), exit=True)
         code = golden_years(int(argv[1]))
         say(card)
+        faulthandler.cancel_dump_traceback_later()
+        return code
+    if len(argv) == 2 and argv[0] == "--cards" and argv[1].isdigit():
+        faulthandler.dump_traceback_later(CARDS_WATCHDOG_S, exit=True)
+        code = cards_main(int(argv[1]))
         faulthandler.cancel_dump_traceback_later()
         return code
     if len(argv) == 2 and argv[0] == "--precision-year":
@@ -4419,15 +4949,9 @@ def main(argv):
                        multi["single_launches"][k]}
                for k in launches}
 
-    sources = {"fct_tracer_step": ("uvic_tpu_torch/csrc/tracer_step.cu",
-                                   "uvic_tpu/ops/pallas_tracer.py:86"),
-               "apply_region_means": ("uvic_tpu_torch/csrc/convect_apply.cu",
-                                      "uvic_tpu/ops/convection.py:90"),
-               "congrad": ("uvic_tpu_torch/csrc/congrad.cu",
-                           "uvic_tpu/ops/pallas_cg.py:87")}
     kernels = []
     for k in (k_tracer, k_convect, k_cg):
-        src, rep = sources[k["name"]]
+        src, rep = KERNEL_SOURCES[k["name"]]
         entry = {"name": k["name"], "route": "cuda", "source": src,
                  "replaces": rep, "launches": launches[k["name"]],
                  "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -16,8 +16,10 @@ from uvic_tpu_torch.coupler.driver import CoupledModel, pack_state
 from uvic_tpu_torch.diag.conservation import ConservationAudit
 from uvic_tpu_torch.diag.tsi import TsiDiagnostics
 from uvic_tpu_torch.models.ocean.model import make_forcing, make_ocean
-from uvic_tpu_torch.parallel.halo import exchange_pad, pack_exchange
-from uvic_tpu_torch.parallel.mesh import (gather_coupled, gather_pytree,
+from uvic_tpu_torch.parallel.halo import (exchange_pad, pack_exchange,
+                                          pack_exchange_ring)
+from uvic_tpu_torch.parallel.mesh import (RankMesh, gather_coupled,
+                                          gather_pytree, local_block,
                                           make_mesh, shard_coupled,
                                           shard_pytree)
 from uvic_tpu_torch.parallel.shard_segment import (ShardedCoupledModel,
@@ -275,3 +277,33 @@ def part_of_the_world(mesh, shape, big, field):
         out["big"] = str(e)
     torch.distributed.barrier()
     return out
+
+
+def with_one_tag(mesh, fn, **kw):
+    """``fn(mesh, **kw)`` with every message of ``RankMesh.exchange``
+    under one tag: gloo then pairs a rank's sends and receives by peer
+    and posting order alone, as NCCL does.  Returns (the result, the
+    messages sent under the one tag)."""
+    exchange = RankMesh.exchange
+    sent = []
+
+    def one_tag(self, sends, recvs):
+        sent.append(len(sends))
+        return exchange(self, [(t, peer, 0) for t, peer, _ in sends],
+                        [(t, peer, 0) for t, peer, _ in recvs])
+    RankMesh.exchange = one_tag
+    try:
+        return fn(mesh, **kw), sum(sent)
+    finally:
+        RankMesh.exchange = exchange
+
+
+def ring_blocks(mesh, fields, w):
+    """The rank's blocks of the global (..., jmt, imt) ``fields`` padded
+    through ``pack_exchange_ring`` (pad: the window's columns beyond
+    imt on this mesh), as NumPy."""
+    jmt, imt = fields[0].shape[-2:]
+    pad = -(-imt // mesh.shape[1]) * mesh.shape[1] - imt
+    blocks = [local_block(torch.as_tensor(a), mesh, jmt, imt)
+              for a in fields]
+    return [b.numpy() for b in pack_exchange_ring(blocks, w, mesh, pad)]

@@ -108,13 +108,25 @@ def launch(name, *args):
 def check_cuda(name, tensors, dtype=torch.float32):
     """Device, dtype, shape and contiguity checks of a kernel's inputs:
     ``tensors`` maps a name to ``(tensor, shape)``; a None tensor (an
-    absent optional input) and a None shape are not checked."""
+    absent optional input) and a None shape are not checked.  Every
+    tensor must lie on the current card, whose stream the kernel is
+    launched on (``launch``): a pointer into another card's memory would
+    be an illegal address there, or read silently through peer access."""
+    card = None
     for key, (t, shape) in tensors.items():
-        if t is None or (t.is_cuda and t.dtype == dtype and t.is_contiguous()
-                         and (shape is None or t.shape == shape)):
+        if t is None:
+            continue
+        if t.is_cuda and card is None:
+            card = torch.cuda.current_device()
+        if (t.is_cuda and t.device.index == card and t.dtype == dtype
+                and t.is_contiguous()
+                and (shape is None or t.shape == shape)):
             continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {key} is on {t.device}, not cuda")
+        if t.device.index != card:
+            raise ValueError(f"{name}: {key} is on {t.device}, the current "
+                             f"card is cuda:{card}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} is {t.dtype}, not {dtype}")
         if shape is not None and tuple(t.shape) != tuple(shape):

@@ -99,10 +99,13 @@ def _earth(restart=None, device=None, dtype="float32", cfg=None):
     return model, state
 
 
-def dryrun_multichip(n_devices: int, device=None) -> None:
+def dryrun_multichip(n_devices: int, device=None,
+                     backend: str = "gloo") -> None:
     """``__graft_entry__.dryrun_multichip`` on a ``(2, n/2)`` mesh
-    (``(1, n)`` for odd or small n) of ``n_devices`` ranks (gloo;
-    ``device`` each rank's, ``cuda`` unless asked otherwise):
+    (``(1, n)`` for odd or small n) of ``n_devices`` ranks (``device``
+    each rank's, ``cuda`` unless asked otherwise: the card of its rank
+    modulo the host's cards; ``backend`` gloo, or nccl with one card a
+    rank):
 
     1. the small flagship, one rank-decomposed leapfrog step;
     2. one coupled segment (``ShardedCoupledModel``) of the reference's
@@ -120,7 +123,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         shape = (2, n_devices // 2)
     else:
         shape = (1, n_devices)
-    spawn(_dryrun_rank, shape, "gloo", device, 600.0)
+    spawn(_dryrun_rank, shape, backend, device, 600.0)
 
 
 def _dryrun_rank(mesh):

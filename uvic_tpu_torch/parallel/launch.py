@@ -20,6 +20,13 @@ exited itself, so on a failure ``spawn`` waits up to
 ``FAILURE_GRACE_S`` for another rank's traceback and names a rank that
 died of the transport only if none other failed.  A run that outlives
 ``timeout_s`` is killed and raises ``TimeoutError``.
+
+On the card each rank takes the card ``rank_card`` gives it (its global
+rank modulo the cards of the host) and makes it current before it joins
+the process group: the kernels launch on the current card's stream, and
+NCCL binds its communicators to it (``device_id``).  NCCL takes one card
+a rank; gloo ranks may share a card, their messages staged through the
+host (``mesh.RankMesh``).
 """
 
 from __future__ import annotations
@@ -43,9 +50,41 @@ _ONE_THREAD = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1",
 
 # seconds a failure waits for the other ranks' tracebacks
 FAILURE_GRACE_S = 5.0
-# what a rank's traceback says when it died because a peer went away
+# what a rank's traceback says when it died because a peer went away:
+# gloo's words, then NCCL's (a peer that exited, a collective the
+# watchdog timed out, a communicator aborted after another rank failed)
 TRANSPORT = re.compile(r"Connection closed by peer|Connection reset by "
-                       r"peer|connectFullMesh|Broken pipe")
+                       r"peer|connectFullMesh|Broken pipe|ncclRemoteError|"
+                       r"remote process exited|Watchdog caught collective "
+                       r"operation timeout|NCCL communicator was aborted|"
+                       r"failed to recv, got 0 bytes")
+
+
+def rank_card(rank=None, env=None, count=None) -> str:
+    """The card of a rank, made current: ``cuda:<rank % count>``.
+    ``rank`` is the global rank (by default the launcher's ``RANK`` in
+    ``env``, ``os.environ`` unless given), ``count`` the host's cards
+    (by default ``torch.cuda.device_count()``).  The global rank, not
+    ``LOCAL_RANK``: two launchers on one host would otherwise put their
+    ranks on the same cards."""
+    import torch
+    if rank is None:
+        rank = int((os.environ if env is None else env)["RANK"])
+    if count is None:
+        count = torch.cuda.device_count()
+    index = int(rank) % int(count)
+    torch.cuda.set_device(index)
+    return f"cuda:{index}"
+
+
+def init_group(backend, rank, world, device, **kw):
+    """``dist.init_process_group`` for a rank on ``device``: with NCCL
+    the communicators are bound to the rank's card (``device_id``)."""
+    import torch
+    import torch.distributed as dist
+    if backend == "nccl":
+        kw["device_id"] = torch.device(device)
+    dist.init_process_group(backend, world_size=world, rank=rank, **kw)
 
 
 class RankFailed(RuntimeError):
@@ -63,11 +102,10 @@ def _entry(rank, world, mesh_shape, backend, device, tmp, timeout_s):
         from .mesh import make_mesh
         torch.set_num_threads(1)
         if device.startswith("cuda"):
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(
-            backend, init_method="file://" + os.path.join(tmp, "store"),
-            world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout_s))
+            device = rank_card(rank)
+        init_group(backend, rank, world, device,
+                   init_method="file://" + os.path.join(tmp, "store"),
+                   timeout=datetime.timedelta(seconds=timeout_s))
         try:
             # every rank has connected before one can fail in fn
             dist.barrier()

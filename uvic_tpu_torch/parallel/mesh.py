@@ -9,12 +9,18 @@ walled (None beyond the first and last latitude band).
 The caller's process group decides the backend, and with it the
 transport of every message (``RankMesh.transport``):
 
-- ``nccl``: device tensors, one card per rank;
+- ``nccl``: device tensors, one card per rank, card to card;
 - ``gloo`` with CPU tensors: the ranks' tensors as they are;
 - ``gloo`` with CUDA tensors: every message is copied to the host, sent,
   and copied back to the card (``host_staged``); gloo's point-to-point
   calls take CPU tensors only.  This is how several ranks share one
   card, where NCCL refuses two ranks on one GPU.
+
+NCCL ignores tags: it matches the messages between two ranks by the
+order in which each posts them.  Every exchange of the port posts its
+messages so that this order alone pairs each send with its receive (a
+rank posts its messages to one peer in the order that peer posts its
+receives from it), so the tags only name the messages for gloo.
 
 A ``(1, 1)`` mesh needs no process group: every exchange stays local.
 A mesh may use part of the process group (``make_mesh``): on a world
@@ -49,8 +55,10 @@ class RankMesh:
     """This rank's place in the mesh and the messages it exchanges.
 
     ``exchange_s`` sums the seconds spent in exchanges and gathers,
-    host staging included (on a card, after the work queued before them
-    has finished).  ``group`` is the process group of the mesh's ranks
+    host staging included (on a card, from the end of the work queued
+    before them to the end of the messages).  ``device`` names the
+    rank's card (``cuda:<index>``; a bare ``cuda`` is the current
+    card).  ``group`` is the process group of the mesh's ranks
     (None: the default group, which then holds exactly them); ``rank``
     and every peer are ranks of the mesh, which are the group's."""
 
@@ -62,6 +70,8 @@ class RankMesh:
         self.rank = int(rank)
         self.iy, self.ix = divmod(self.rank, self.shape[1])
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.backend = backend
         self.group = group
         self.host_staged = backend == "gloo" and self.device.type == "cuda"
@@ -107,7 +117,9 @@ class RankMesh:
         """One round of point-to-point messages.  ``sends``: (tensor,
         peer, tag); ``recvs``: (tensor of the message's shape and dtype,
         peer, tag).  Returns the received tensors on the mesh's device,
-        in the order of ``recvs``."""
+        in the order of ``recvs``.  The k-th receive from a peer takes
+        the k-th message that peer sends this rank in its round (NCCL
+        matches by that order; gloo by peer and tag)."""
         t0 = self._clock()
         stage = self.host_staged
         ops, outs = [], []
@@ -127,7 +139,7 @@ class RankMesh:
         if stage:
             outs = [o.to(self.device) for o in outs]
         self.messages += len(sends)
-        self.exchange_s += time.perf_counter() - t0
+        self.exchange_s += self._clock() - t0
         return outs
 
     def all_gather(self, t) -> list:
@@ -141,7 +153,7 @@ class RankMesh:
         if self.host_staged:
             outs = [o.to(self.device) for o in outs]
         self.messages += self.size - 1
-        self.exchange_s += time.perf_counter() - t0
+        self.exchange_s += self._clock() - t0
         return outs
 
     def row_gather(self, t, tag: int) -> list:
@@ -168,7 +180,11 @@ def make_mesh(shape=(1, 1), axis_names=("y", "x"), device=None):
     (``dist.new_group``, which every rank of the world joins), and the
     others get None: they do no work and should wait for the mesh's
     ranks at a barrier of the world before they leave.  A mesh larger
-    than the world raises."""
+    than the world raises.
+
+    The mesh's ranks then meet at a barrier of its group, so that no
+    batch of point-to-point messages is the group's first call (NCCL
+    needs every rank of a group in a first call of that kind)."""
     device = resolve_device(device)
     n = int(np.prod(shape))
     if dist.is_available() and dist.is_initialized():
@@ -180,6 +196,7 @@ def make_mesh(shape=(1, 1), axis_names=("y", "x"), device=None):
         rank = dist.get_rank()
         if rank >= n:
             return None
+        dist.barrier(group=group)
         return RankMesh(shape, device, axis_names, rank,
                         dist.get_backend(), group)
     if n != 1:

@@ -12,6 +12,11 @@
         --node-rank $I --rdzv-backend c10d --rdzv-endpoint HOST0:1234 \\
         -m uvic_tpu_torch.run_multihost --mesh 2,3
 
+    # four cards, one rank a card, device tensors card to card (the
+    # mesh defaults to (2, 2), as the JAX script's for four devices):
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m uvic_tpu_torch.run_multihost --backend nccl
+
     # one launcher that spawns N ranks on this host (--cpu-mesh N: gloo
     # ranks on the CPU, a check without a card):
     python -m uvic_tpu_torch.run_multihost --spawn 8 --mesh 2,3
@@ -34,9 +39,11 @@ participate" in ``scripts/make_multihost_artifact.py``): ranks
 and exit 0 once every rank has finished (``parallel.mesh.make_mesh``).
 A launcher that spawns its ranks (``--spawn``, ``--cpu-mesh``) starts
 only the mesh's.  The ranks run on the card (``--device cpu`` to ask
-otherwise; ``--cpu-mesh`` runs on the CPU) and talk through the process
-group's backend (``--backend``, gloo by default: with CUDA tensors its
-messages are staged through the host; nccl takes one card per rank).
+otherwise; ``--cpu-mesh`` runs on the CPU), each on the card of its
+global rank modulo the host's cards (``parallel.launch.rank_card``),
+and talk through the process group's backend (``--backend``, gloo by
+default: with CUDA tensors its messages are staged through the host;
+nccl takes one card per rank and moves device tensors card to card).
 
 Rank 0 prints the steps' time and a state checksum and, with ``--out``,
 writes them as JSON under the JAX script's keys, which map onto the
@@ -51,11 +58,11 @@ rank process.
 - ``mesh``, ``steps``, ``ms_per_step``, ``checksum_t0``,
   ``checksum_ke``, ``nan``: as the JAX script's.
 
-With ``--status-dir DIR`` every rank of a process group (only rank 0 of
-a spawned launch) also writes ``DIR/rank<R>.json``: its rank, the
-world, whether it was on the mesh, the code it exits with and, on the
-mesh's rank 0, the kernels' launches over the steps, the step and
-message times and a SHA-256 digest of the gathered state.
+With ``--status-dir DIR`` every rank also writes ``DIR/rank<R>.json``:
+its rank, the world, whether it was on the mesh, the code it exits with
+and, on the mesh, its card, the kernels' launches over the steps and
+its step and message times; the mesh's rank 0 adds a SHA-256 digest of
+the gathered state.
 A NaN, or a failing rank, exits non-zero.
 """
 
@@ -106,22 +113,14 @@ def choose_mesh(mesh_arg, ndev, jmt=JMT, imt=IMT):
 DIGEST_FIELDS = ("t", "tm1", "u", "um1", "psi0", "psi1", "ptd", "ptdb")
 
 
-def rank_run(mesh, steps):
-    """One rank's run: the cold-start state of ``ModelConfig()`` in
-    float32, a first sharded leapfrog step, then ``steps`` timed ones.
-    Returns the JSON fields on rank 0 (None elsewhere), with the
-    kernels' launches over all the steps and the gathered state's
-    digest."""
+def cold_start(device):
+    """The JAX script's model and start on ``device``: ``ModelConfig()``
+    in float32, the exponential temperature profile at rest, a sin(3
+    lat) zonal wind stress and no tracer fluxes.  (model, state,
+    forcing), whole."""
     from .config import ModelConfig
     from .models.ocean.model import make_forcing, make_ocean
-    from .ops.cg_kernel import congrad_launch
-    from .ops.convection import apply_region_means
-    from .ops.tracer_kernel import fct_tracer_step
-    from .parallel.mesh import gather_pytree, shard_pytree
-    from .parallel.shard_step import ShardedOceanStep
-
-    m = make_ocean(ModelConfig().replace(dtype="float32"),
-                   device=mesh.device)
+    m = make_ocean(ModelConfig().replace(dtype="float32"), device=device)
     g = m.params.grid
     t0 = np.zeros((m.nt, g.km, g.jmt, g.imt))
     t0[0] = (20.0 * np.exp(-np.asarray(g.zt) / 1000e2))[:, None, None]
@@ -129,12 +128,37 @@ def rank_run(mesh, steps):
     yu = np.asarray(g.yu)
     taux = np.sin(np.deg2rad(yu * 3))[:, None] * np.ones((1, g.imt))
     smf = torch.as_tensor(np.stack([taux / 1.035, np.zeros_like(taux)]),
-                          dtype=m.dtype, device=mesh.device)
-    stf = torch.zeros((m.nt, g.jmt, g.imt), dtype=m.dtype,
-                      device=mesh.device)
+                          dtype=m.dtype, device=device)
+    stf = torch.zeros((m.nt, g.jmt, g.imt), dtype=m.dtype, device=device)
+    return m, m.init_state(t0), make_forcing(smf, stf)
+
+
+def state_digest(state) -> str:
+    """SHA-256 of a whole state's DIGEST_FIELDS, as --status-dir gives
+    it: equal digests, bitwise equal states."""
+    sha = hashlib.sha256()
+    for k in DIGEST_FIELDS:
+        sha.update(getattr(state, k).cpu().numpy().tobytes())
+    return sha.hexdigest()
+
+
+def rank_run(mesh, steps):
+    """One rank's run: the cold start (``cold_start``) cut into the
+    rank's blocks, a first sharded leapfrog step, then ``steps`` timed
+    ones.  Returns the rank's card, the kernels' launches over all the
+    steps, its step and message times and messages a step; on rank 0
+    also the JSON fields and the gathered state's digest."""
+    from .ops.cg_kernel import congrad_launch
+    from .ops.convection import apply_region_means
+    from .ops.tracer_kernel import fct_tracer_step
+    from .parallel.mesh import gather_pytree, shard_pytree
+    from .parallel.shard_step import ShardedOceanStep
+
+    m, start, whole_forcing = cold_start(mesh.device)
+    g = m.params.grid
     ss = ShardedOceanStep(m, mesh)
-    state = shard_pytree(m.init_state(t0), mesh, g.jmt, g.imt)
-    forcing = shard_pytree(make_forcing(smf, stf), mesh, g.jmt, g.imt)
+    state = shard_pytree(start, mesh, g.jmt, g.imt)
+    forcing = shard_pytree(whole_forcing, mesh, g.jmt, g.imt)
     counters = {"fct_tracer_step": fct_tracer_step,
                 "apply_region_means": apply_region_means,
                 "congrad": congrad_launch}
@@ -147,28 +171,27 @@ def rank_run(mesh, steps):
 
     state = ss.step(state, forcing, leapfrog=True)
     sync()
-    ex0 = mesh.exchange_s
+    ex0, msg0 = mesh.exchange_s, mesh.messages
     t_start = time.perf_counter()
     for _ in range(steps):
         state = ss.step(state, forcing, leapfrog=True)
     sync()
     dt_step = (time.perf_counter() - t_start) / max(steps, 1)
     exchange_ms = (mesh.exchange_s - ex0) / max(steps, 1) * 1e3
-    launches = {k: c.launches for k, c in counters.items()}
-    full = gather_pytree(state, mesh, g.jmt, g.imt, root=0)
-    if full is None:
-        return None
-    sha = hashlib.sha256()
-    for k in DIGEST_FIELDS:
-        sha.update(getattr(full, k).cpu().numpy().tobytes())
-    return dict(
+    out = dict(
         ms_per_step=round(dt_step * 1e3, 2),
         exchange_ms_per_step=round(exchange_ms, 2),
-        transport=mesh.transport,
-        nan=bool(torch.isnan(full.t).any()),
+        messages_per_step=(mesh.messages - msg0) / max(steps, 1),
+        transport=mesh.transport, card=str(mesh.device),
+        launches={k: c.launches for k, c in counters.items()})
+    full = gather_pytree(state, mesh, g.jmt, g.imt, root=0)
+    if full is None:
+        return out
+    return dict(
+        out, nan=bool(torch.isnan(full.t).any()),
         checksum_t0=float(torch.sum(full.t[0], dtype=torch.float32)),
         checksum_ke=float(torch.sum(full.u ** 2, dtype=torch.float32)),
-        launches=launches, digest=sha.hexdigest())
+        digest=state_digest(full))
 
 
 def parse(argv):
@@ -192,7 +215,9 @@ def parse(argv):
     p.add_argument("--status-dir", default=None,
                    help="every rank writes DIR/rank<R>.json: its place, "
                         "exit code and (rank 0) launches and digest")
-    p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
+    p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                   help="nccl: one card a rank, device tensors card to "
+                        "card")
     p.add_argument("--device", default=None,
                    help="the ranks' device (default cuda; cpu with "
                         "--cpu-mesh)")
@@ -209,7 +234,8 @@ def write_status(status_dir, rank, **fields):
 
 def main(argv=None):
     args = parse(argv)
-    from .parallel.launch import spawn
+    from . import resolve_device
+    from .parallel.launch import init_group, rank_card, spawn
     from .parallel.mesh import make_mesh
 
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
@@ -228,17 +254,19 @@ def main(argv=None):
 
     if args.cpu_mesh or args.spawn:
         # the launcher starts the mesh's ranks only
-        out = spawn(rank_run, shape, args.backend, device, 1800.0,
-                    args.steps)[0]
+        outs = spawn(rank_run, shape, args.backend, device, 1800.0,
+                     args.steps)
+        out = outs[0]
         processes, world, local = 1, n, n
         # every spawned rank exited 0, or spawn would have raised
-        write_status(args.status_dir, 0, world=n, on_mesh=True, code=0,
-                     **_rank0_status(out))
+        for rank, o in enumerate(outs):
+            write_status(args.status_dir, rank, world=n, on_mesh=True,
+                         code=0, **_rank_status(o))
     elif ndev == 1:
         out = rank_run(make_mesh(shape, device=device), args.steps)
         processes = world = local = 1
         write_status(args.status_dir, 0, world=1, on_mesh=True,
-                     code=int(out["nan"]), **_rank0_status(out))
+                     code=int(out["nan"]), **_rank_status(out))
     else:
         world = ndev
         if args.coordinator is not None:
@@ -249,10 +277,10 @@ def main(argv=None):
             local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
             processes = int(os.environ.get("GROUP_WORLD_SIZE",
                                            world // local))
-        if device is None and torch.cuda.is_available():
-            device = f"cuda:{rank % torch.cuda.device_count()}"
-        dist.init_process_group(args.backend, init_method=init,
-                                world_size=world, rank=rank)
+        device = str(resolve_device(device))
+        if device.startswith("cuda"):
+            device = rank_card(rank)
+        init_group(args.backend, rank, world, device, init_method=init)
         try:
             mesh = make_mesh(shape, device=device)
             if mesh is None:
@@ -265,12 +293,12 @@ def main(argv=None):
             dist.barrier()
         finally:
             dist.destroy_process_group()
-        code = 1 if out is not None and out["nan"] else 0
+        code = 1 if out is not None and out.get("nan") else 0
         write_status(args.status_dir, rank, world=world,
                      on_mesh=mesh is not None, code=code,
-                     **({} if out is None else _rank0_status(out)))
-    if out is None:
-        return 0
+                     **({} if out is None else _rank_status(out)))
+    if out is None or "digest" not in out:
+        return 0    # idle, or a rank of the mesh other than its rank 0
     print(f"{args.steps} sharded steps: {out['ms_per_step']:.2f} ms/step "
           f"({out['exchange_ms_per_step']:.2f} ms in messages, "
           f"{out['transport']}), nan={out['nan']} "
@@ -286,9 +314,10 @@ def main(argv=None):
     return 1 if out["nan"] else 0
 
 
-def _rank0_status(out):
+def _rank_status(out):
     return {k: out[k] for k in ("launches", "digest", "ms_per_step",
-                                "exchange_ms_per_step", "transport")}
+                                "exchange_ms_per_step", "messages_per_step",
+                                "transport", "card") if k in out}
 
 
 if __name__ == "__main__":
